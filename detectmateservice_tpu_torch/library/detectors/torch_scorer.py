@@ -1,0 +1,644 @@
+"""TorchScorerDetector: GPU-batched neural anomaly scoring.
+
+Counterpart of ``detectmateservice_tpu/library/detectors/jax_scorer.py``
+(``JaxScorerDetector``) on PyTorch and CUDA, for the ``mlp`` scorer. The
+same CoreDetector contract (train-then-detect, alert-or-None per message)
+and the same phases:
+
+1. **train** — the first ``data_use_training`` messages are tokenized and
+   buffered (filtered from the output),
+2. **fit** — at the phase boundary the scorer trains for ``train_epochs``
+   (at least ``min_train_steps`` steps) over the buffer on the device, then
+   calibrates the alert threshold as ``mean + threshold_sigma * std`` of
+   the training scores (or of the positional z-scores, ``score_norm:
+   position``),
+3. **detect** — batches are tokenized on the host, padded to a power-of-two
+   bucket, scored on the device, and read back asynchronously: up to
+   ``pipeline_depth`` batches stay in flight, each with a CUDA event that
+   says when its scores have landed in pinned host memory; scores above
+   the threshold become DetectorSchema alerts, in input order.
+
+``head_impl: pallas`` scores through the hand-written CUDA kernel of
+``ops/scorehead.py`` (the name is the JAX package's, so one config drives
+both packages). Batches of at most ``host_score_max_batch`` rows score on a
+CPU copy of the module through the einsum head, as the JAX detector's host
+twin does.
+
+Options of the JAX detector that later slices port raise ``LibraryError``
+when set away from their defaults: ``model`` other than ``mlp``,
+``dtype: int8w``, ``mesh_shape``, ``batch_deadline_ms > 0``,
+``upload_workers > 0``, ``featurize_threads > 0``. ``native_featurize`` is
+accepted; featurization runs in Python here (rows identical to the native
+featurizer's).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...models.mlp import MLPScorer, MLPScorerConfig
+from ...models.tokenizer import PAD_ID, HashTokenizer, narrow_tokens
+from ...ops import scorehead
+from ...schemas import DetectorSchema, ParserSchema, SchemaError
+from ...utils.device import resolve_device
+from ..common.core import LibraryError
+from ..common.detector import BufferMode, CoreDetector, CoreDetectorConfig
+
+logger = logging.getLogger(__name__)
+
+_DTYPES = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32, "float16": torch.float16}
+
+
+@dataclasses.dataclass
+class TorchScorerDetectorConfig(CoreDetectorConfig):
+    """Field for field ``JaxScorerDetectorConfig``, with its defaults."""
+
+    method_type: str = "torch_scorer"
+    model: str = "mlp"                # "mlp" | "gru" | "logbert"
+    vocab_size: int = 32768
+    seq_len: int = 32
+    dim: int = 128
+    depth: int = 2                    # logbert/gru layers
+    heads: int = 4                    # logbert only
+    score_topk: int = 0               # logbert/gru: 0=mean NLL, k>0=top-k mean
+    score_vocab: int = 0              # logbert/gru candidate-vocab scoring
+    attn_impl: str = "auto"           # logbert attention path
+    # scoring head: "auto"/"einsum" = weight-tied logits + log_softmax;
+    # "pallas" = the fused logsumexp head (CUDA kernel, ops/scorehead.py)
+    head_impl: str = "auto"
+    data_use_training: int = 256
+    train_epochs: int = 3
+    min_train_steps: int = 100
+    train_batch_size: int = 32
+    threshold_sigma: float = 4.0
+    score_threshold: Optional[float] = None  # explicit override wins
+    # "none": score = sequence NLL; "position": max over positions of
+    # (NLL - mu_pos)/sigma_pos, mu/sigma calibrated on training traffic
+    score_norm: str = "none"
+    # run the train→detect boundary fit in a background thread so the
+    # caller keeps feeding input during training (batched path only)
+    async_fit: bool = True
+    max_batch: int = 1024
+    # scored batches that may be in flight before results are forced back
+    pipeline_depth: int = 8
+    batch_deadline_ms: float = 0.0        # coalescer: a later slice
+    batch_target_occupancy: float = 0.9
+    bucket_retire_interval_s: float = 0.0
+    bucket_retire_min_dispatches: int = 2
+    upload_workers: int = 0               # upload workers: a later slice
+    native_featurize: bool = True         # accepted; Python featurize here
+    featurize_threads: int = 0            # native featurize: a later slice
+    # batches of at most this many rows score on the CPU copy of the module
+    host_score_max_batch: int = 128
+    device: Optional[str] = None          # None = "cuda:0"; "cuda:N" | "cpu"
+    mesh_shape: Optional[Dict[str, int]] = None  # multi-device: a later slice
+    dtype: str = "auto"                   # "auto" = bfloat16
+    seed: int = 0
+
+
+def _bucket(n: int, max_batch: int) -> int:
+    """Round a ragged batch size up to a power of two (≤ max_batch)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, max_batch)
+
+
+def _padded_chunks(tokens: np.ndarray, bucket: int):
+    """Yield (start, [bucket, S] chunk zero-padded at the end, real rows)."""
+    for start in range(0, len(tokens), bucket):
+        chunk = tokens[start:start + bucket]
+        real = len(chunk)
+        if real < bucket:
+            chunk = np.concatenate(
+                [chunk, np.zeros((bucket - real,) + chunk.shape[1:], chunk.dtype)])
+        yield start, chunk, real
+
+
+class _InflightSlot:
+    """One scored batch in the in-flight queue: ``scores`` is a host numpy
+    array (host path, CPU device) or a pinned CPU tensor that a CUDA copy
+    is filling; ``event`` (None off the GPU) completes with that copy."""
+
+    __slots__ = ("scores", "event", "raws", "real", "path")
+
+    def __init__(self, raws, real: int, path: str):
+        self.scores: Any = None
+        self.event: Optional[torch.cuda.Event] = None
+        self.raws = raws
+        self.real = real
+        self.path = path
+
+
+class TorchScorerDetector(CoreDetector):
+    config_class = TorchScorerDetectorConfig
+    description = "TorchScorerDetector flags log lines the GPU scorer finds improbable."
+
+    def __init__(self, name: Optional[str] = None, config: Any = None,
+                 buffer_mode: BufferMode = BufferMode.MICRO_BATCH) -> None:
+        super().__init__(name=name or "TorchScorerDetector", buffer_mode=buffer_mode,
+                         config=config)
+        self.config: TorchScorerDetectorConfig
+        self._validate_static_config()
+        self._tokenizer = HashTokenizer(vocab_size=self.config.vocab_size,
+                                        seq_len=self.config.seq_len)
+        self._scorer: Optional[MLPScorer] = None
+        self._model: Optional[torch.nn.Module] = None
+        self._optimizer: Optional[torch.optim.Optimizer] = None
+        self._device: Optional[torch.device] = None
+        self._threshold: Optional[float] = self.config.score_threshold
+        # (mean, std) of the calibration scores: a runtime threshold_sigma
+        # change recomputes the threshold without a refit
+        self._calib_stats: Optional[Tuple[float, float]] = None
+        self._train_buffer: List[np.ndarray] = []
+        self._fitted = False
+        self._norm_mu: Optional[np.ndarray] = None     # [S] fp32, "position" norm
+        self._norm_sigma: Optional[np.ndarray] = None
+        self._norm_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._fit_thread: Optional[threading.Thread] = None
+        # guards the join-and-dispatch handoff in _finish_fit: the engine
+        # thread and external callers may race it
+        self._fit_lock = threading.Lock()
+        self._pending: List[Tuple[np.ndarray, bytes]] = []  # backlog during fit
+        # CPU copy for small batches (einsum head), synced after each fit
+        self._host_scorer: Optional[MLPScorer] = None
+        self._host_model: Optional[torch.nn.Module] = None
+        self._host_norm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._inflight: deque = deque()
+        # scored batches by path ("device" / "host"), for callers that check
+        # which path a stream took
+        self.path_counts: Dict[str, int] = {"device": 0, "host": 0}
+
+    def _validate_static_config(self) -> None:
+        """Reject bad or not-yet-ported config at construction."""
+        cfg = self.config
+        if cfg.score_norm not in ("none", "position"):
+            raise LibraryError(
+                f"unknown score_norm {cfg.score_norm!r}; expected 'none' or 'position'")
+        if cfg.attn_impl not in ("auto", "einsum", "flash", "blockwise", "ring"):
+            raise LibraryError(
+                f"unknown attn_impl {cfg.attn_impl!r}; expected 'auto', "
+                "'einsum', 'flash', 'blockwise', or 'ring'")
+        if cfg.model not in ("mlp", "gru", "logbert"):
+            raise LibraryError(f"unknown scorer model {cfg.model!r}")
+        if cfg.dtype not in ("auto", "bfloat16", "float32", "float16", "int8w"):
+            raise LibraryError(
+                f"unknown dtype {cfg.dtype!r}; expected 'auto', 'bfloat16', "
+                "'float32', 'float16', or 'int8w'")
+        if cfg.head_impl not in ("auto", "einsum", "pallas"):
+            raise LibraryError(
+                f"unknown head_impl {cfg.head_impl!r}; expected 'auto', "
+                "'einsum', or 'pallas'")
+        if cfg.batch_deadline_ms < 0:
+            raise LibraryError(
+                f"batch_deadline_ms must be >= 0 (got {cfg.batch_deadline_ms})")
+        if not 0.0 < cfg.batch_target_occupancy <= 1.0:
+            raise LibraryError(
+                "batch_target_occupancy must be in (0, 1] "
+                f"(got {cfg.batch_target_occupancy})")
+        if cfg.bucket_retire_interval_s < 0:
+            raise LibraryError(
+                "bucket_retire_interval_s must be >= 0 "
+                f"(got {cfg.bucket_retire_interval_s})")
+        later = {
+            "model": (cfg.model != "mlp", "the gru/logbert slice"),
+            "dtype": (cfg.dtype == "int8w", "the int8w slice"),
+            "mesh_shape": (cfg.mesh_shape is not None, "the multi-GPU slice"),
+            "batch_deadline_ms": (cfg.batch_deadline_ms > 0,
+                                  "the coalescer slice"),
+            "upload_workers": (cfg.upload_workers > 0,
+                               "the coalescer and upload-worker slice"),
+            "featurize_threads": (cfg.featurize_threads > 0,
+                                  "the native featurize slice"),
+        }
+        for field, (unported, slice_name) in later.items():
+            if unported:
+                raise LibraryError(
+                    f"{field}={getattr(cfg, field)!r} is not ported to the torch "
+                    f"detector yet ({slice_name}); use the default")
+
+    # -- lifecycle ------------------------------------------------------
+    def setup_io(self) -> None:
+        """Resolve the device, build the model with params initialized on
+        it, build the CUDA kernel the head needs, and run each bucket the
+        JAX detector compiles at boot once (allocator and kernel warm-up)."""
+        self._ensure_scorer()
+        cfg = self.config
+        small = () if cfg.host_score_max_batch > 0 else (1, 8)
+        for bucket in sorted({_bucket(b, cfg.max_batch)
+                              for b in (*small, cfg.train_batch_size, cfg.max_batch)}):
+            self._score_dev(np.zeros((bucket, cfg.seq_len), np.int32)).cpu()
+
+    def _ensure_scorer(self) -> None:
+        if self._scorer is not None:
+            return
+        cfg = self.config
+        self._validate_static_config()
+        device = resolve_device(cfg.device)
+        if cfg.head_impl == "pallas" and device.type == "cuda":
+            # fail at boot, not per batch: nvcc missing or refusing the
+            # kernel stops the detector here
+            scorehead.build_kernel()
+        scorer = MLPScorer(MLPScorerConfig(
+            vocab_size=cfg.vocab_size, dim=cfg.dim, seq_len=cfg.seq_len,
+            dtype=_DTYPES[cfg.dtype], head_impl=cfg.head_impl))
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        self._model = scorer.init_model(device, generator)
+        self._optimizer = scorer.make_optimizer(self._model)
+        self._device = device
+        if cfg.host_score_max_batch > 0:
+            # the host copy scores through the einsum head whatever the
+            # device head is, like the JAX detector's host twin
+            self._host_scorer = MLPScorer(
+                dataclasses.replace(scorer.config, head_impl="einsum"))
+        self._scorer = scorer
+
+    def load_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Install weights (a ``state_dict``, e.g. from
+        ``models.convert.params_from_flax``) before the fit; the optimizer
+        restarts from zero moments."""
+        self._ensure_scorer()
+        self._model.load_state_dict(state_dict)
+        self._optimizer = self._scorer.make_optimizer(self._model)
+
+    def _sync_host_params(self) -> None:
+        """Mirror the current weights into the CPU copy (after fit)."""
+        if self._host_scorer is None or self._model is None:
+            return
+        self._host_model = self._host_scorer.clone_model(self._model, torch.device("cpu"))
+        if self._norm_mu is not None:
+            self._host_norm = (torch.from_numpy(self._norm_mu),
+                               torch.from_numpy(self._norm_sigma))
+
+    def _put(self, array: np.ndarray) -> torch.Tensor:
+        """Upload a token batch in the narrow wire format (uint16 ids as
+        int16 bits; the scorer widens them on the device). On a GPU the copy
+        is asynchronous from pinned memory, so it queues behind the batches
+        already in flight instead of waiting for them."""
+        narrow = narrow_tokens(array, self.config.vocab_size)
+        if narrow.dtype == np.uint16:
+            narrow = narrow.view(np.int16)
+        tokens = torch.from_numpy(np.ascontiguousarray(narrow))
+        if self._device.type == "cpu":
+            return tokens
+        return tokens.pin_memory().to(self._device, non_blocking=True)
+
+    def _score_dev(self, tokens: np.ndarray) -> torch.Tensor:
+        """Queue scoring of [n, S] tokens on the device; returns the device
+        tensor without waiting for it (positional z-scores once calibrated)."""
+        if self._norm_dev is not None:
+            mu, sigma = self._norm_dev
+            return self._scorer.normscore(self._model, self._put(tokens), mu, sigma)
+        return self._scorer.score(self._model, self._put(tokens))
+
+    def _token_nlls_dev(self, tokens: np.ndarray) -> torch.Tensor:
+        return self._scorer.token_nlls(self._model, self._put(tokens))
+
+    def _score_host(self, tokens: np.ndarray) -> np.ndarray:
+        """Score a small batch on the CPU copy."""
+        t = torch.from_numpy(tokens)
+        if self._host_norm is not None:
+            out = self._host_scorer.normscore(self._host_model, t, *self._host_norm)
+        else:
+            out = self._host_scorer.score(self._host_model, t)
+        return out.numpy()
+
+    def _readback(self, slot: _InflightSlot, scores: torch.Tensor) -> None:
+        """Start the device→host copy of a batch's scores."""
+        if scores.device.type == "cpu":
+            slot.scores = scores.numpy()
+            return
+        host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+        host.copy_(scores, non_blocking=True)
+        slot.event = torch.cuda.Event()
+        slot.event.record(torch.cuda.current_stream(scores.device))
+        slot.scores = host
+
+    def _calibrate_position_norm(self, data: np.ndarray, bs: int) -> np.ndarray:
+        """Masked per-position mean/std of training NLLs → mu/sigma [S];
+        returns the calibration split's z-max scores."""
+        bucket = _bucket(max(bs, self.config.train_batch_size), self.config.max_batch)
+        nlls = self._run_chunked(self._token_nlls_dev, data, bucket)
+        mask = (data != PAD_ID).astype(np.float32)
+        cnt = np.maximum(mask.sum(0), 1.0)
+        mu = (nlls * mask).sum(0) / cnt
+        var = ((nlls - mu) ** 2 * mask).sum(0) / cnt
+        # sigma floor: a near-constant position stays sensitive to unseen
+        # values without the z-score exploding on float jitter
+        sigma = np.maximum(np.sqrt(var), 0.05)
+        self._norm_mu = mu.astype(np.float32)
+        self._norm_sigma = sigma.astype(np.float32)
+        self._norm_dev = (torch.from_numpy(self._norm_mu).to(self._device),
+                          torch.from_numpy(self._norm_sigma).to(self._device))
+        z = (nlls - mu) / sigma
+        z = np.where(mask > 0, z, -np.inf)
+        zmax = z.max(-1)
+        return np.where(np.isneginf(zmax), 0.0, zmax).astype(np.float32)
+
+    def _train_step(self, batch: np.ndarray) -> float:
+        loss = self._scorer.train_step(self._model, self._optimizer, self._put(batch))
+        return float(loss)
+
+    # -- featurization (host side) --------------------------------------
+    def featurize(self, input_: ParserSchema) -> np.ndarray:
+        return self._tokenizer.encode_parsed(
+            input_.get("template") or "",
+            list(input_["variables"]),
+            dict(input_["logFormatVariables"]),
+        )
+
+    def _featurize_raw_batch(self, batch: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+        """Serialized ParserSchema bytes → ([N, S] int32 tokens, [N] ok)."""
+        tokens = np.zeros((len(batch), self.config.seq_len), np.int32)
+        ok = np.zeros(len(batch), dtype=bool)
+        self._featurize_python_rows(batch, tokens, ok, range(len(batch)))
+        return tokens, ok
+
+    def _featurize_python_rows(self, batch: List[bytes], tokens: np.ndarray,
+                               ok: np.ndarray, indices) -> None:
+        encode_into = self._tokenizer.encode_into
+        for i in indices:
+            try:
+                msg = ParserSchema.from_bytes(batch[i])
+            except SchemaError:
+                continue
+            parts = [msg["template"]]
+            parts.extend(msg["variables"])
+            lfv = msg["logFormatVariables"]
+            if lfv:
+                parts.extend(f"{k}={lfv[k]}" for k in sorted(lfv))
+            tokens[i] = 0
+            encode_into(" ".join(parts), tokens[i])
+            ok[i] = True
+
+    # -- training -------------------------------------------------------
+    def train(self, input_: ParserSchema) -> None:
+        """Single-message training path: buffer the tokenized row for the
+        phase-boundary ``fit`` (``process_batch`` buffers directly)."""
+        self._train_buffer.append(self.featurize(input_))
+
+    def fit(self) -> Dict[str, float]:
+        """Train on the buffered normal traffic, calibrate the threshold."""
+        self._ensure_scorer()
+        cfg = self.config
+        if not self._train_buffer:
+            self._fitted = True
+            if self._threshold is None:
+                self._threshold = float("inf")
+            return {"loss": float("nan"), "threshold": self._threshold}
+        data = np.stack(self._train_buffer)
+        self._train_buffer = []
+        bs = min(cfg.train_batch_size, len(data))
+        loss = float("nan")
+        rng = np.random.default_rng(cfg.seed)
+        # "position" norm calibrates on a held-out split: statistics of data
+        # the model memorized underestimate the NLL of fresh values
+        if cfg.score_norm == "position" and len(data) >= 64:
+            n_cal = max(16, len(data) // 5)
+            calib, train_data = data[-n_cal:], data[:-n_cal]
+            bs = min(bs, len(train_data))
+        else:
+            calib, train_data = data, data
+        steps_per_epoch = max(1, len(train_data) // bs)
+        epochs = max(cfg.train_epochs, -(-cfg.min_train_steps // steps_per_epoch))
+        for _ in range(epochs):
+            order = rng.permutation(len(train_data))
+            for start in range(0, len(train_data) - bs + 1, bs):
+                loss = self._train_step(train_data[order[start:start + bs]])
+        if cfg.score_norm == "position":
+            scores = self._calibrate_position_norm(calib, bs)
+        else:
+            bucket = _bucket(max(bs, cfg.train_batch_size), cfg.max_batch)
+            scores = self._run_chunked(self._score_dev, calib, bucket)
+        self._calib_stats = (float(scores.mean()), float(scores.std()))
+        if self._threshold is None:
+            self._threshold = float(scores.mean() + cfg.threshold_sigma * scores.std())
+        self._fitted = True
+        self._sync_host_params()
+        return {"loss": loss, "threshold": self._threshold}
+
+    # -- scoring --------------------------------------------------------
+    def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
+        """[N, S] → [N] fp32 scores, padded up to a bucket, on the device."""
+        self._ensure_scorer()
+        return self._run_chunked(self._score_dev, tokens,
+                                 _bucket(len(tokens), self.config.max_batch))
+
+    @staticmethod
+    def _run_chunked(fn, tokens: np.ndarray, bucket: int) -> np.ndarray:
+        """``fn`` over bucket-sized padded chunks of ``tokens``, waiting for
+        each result; the padding rows are dropped."""
+        parts = [fn(chunk).cpu().numpy()[:real]
+                 for _, chunk, real in _padded_chunks(tokens, bucket)]
+        if not parts:
+            return np.empty((0,), np.float32)
+        return np.concatenate(parts)
+
+    # -- engine contract ------------------------------------------------
+    def process_batch(self, batch: List[bytes]) -> List[Optional[bytes]]:
+        """Batched hot path: featurize the micro-batch, dispatch one device
+        batch per bucket, return the alerts of every batch whose scores have
+        landed (older batches first), keeping at most ``pipeline_depth``
+        in flight. Messages that arrive while a background fit runs wait in
+        an ordered backlog that dispatches once the fit is done."""
+        fit_thread = self._fit_thread
+        if fit_thread is not None and not fit_thread.is_alive():
+            self._finish_fit()
+        tokens, ok = self._featurize_raw_batch(batch)
+        detect_idx: List[int] = []
+        for i in range(len(batch)):
+            if not ok[i]:
+                continue
+            if self._trained < self.config.data_use_training:
+                self._train_buffer.append(tokens[i])
+                self._trained += 1
+                if self._trained == self.config.data_use_training:
+                    self._start_fit()
+            elif self._fit_thread is not None:
+                # the append happens under _fit_lock so _finish_fit's
+                # backlog handoff can never interleave with it
+                with self._fit_lock:
+                    if self._fit_thread is not None:
+                        self._pending.append((tokens[i], batch[i]))
+                        continue
+                if not self._fitted:
+                    self.fit()
+                detect_idx.append(i)
+            else:
+                if not self._fitted:
+                    self.fit()
+                detect_idx.append(i)
+        if detect_idx:
+            self._dispatch(tokens[detect_idx], [batch[i] for i in detect_idx])
+        ready: List[Optional[bytes]] = []
+        while self._inflight and self._head_ready():
+            ready.extend(self._drain_one())
+        while len(self._inflight) > self.config.pipeline_depth:
+            ready.extend(self._drain_one())
+        return ready
+
+    def _head_ready(self) -> bool:
+        """True when the oldest in-flight batch's scores are host-readable
+        without blocking."""
+        event = self._inflight[0].event
+        return event is None or event.query()
+
+    def drain_ready(self) -> List[Optional[bytes]]:
+        """Pop only batches whose scores already landed; never blocks on
+        the device."""
+        out: List[Optional[bytes]] = []
+        self._finish_fit(wait=False)
+        while self._inflight and self._head_ready():
+            out.extend(self._drain_one())
+        return out
+
+    # -- async fit at the phase boundary --------------------------------
+    def _start_fit(self) -> None:
+        if not self.config.async_fit:
+            self.fit()
+            return
+
+        def _fit_safe():
+            try:
+                self.fit()
+            except Exception:
+                logger.exception("background fit failed")
+                self._fitted = True  # fail open: detect with inf threshold
+                if self._threshold is None:
+                    self._threshold = float("inf")
+
+        # publish AND start under the lock: _finish_fit clears the handle
+        # under it, and joining a published-but-unstarted thread raises
+        with self._fit_lock:
+            self._fit_thread = threading.Thread(target=_fit_safe, daemon=True,
+                                                name="ScorerFit")
+            self._fit_thread.start()
+
+    def _finish_fit(self, wait: bool = False) -> None:
+        """Join a finished (or, with ``wait``, still-running) fit thread and
+        dispatch the ordered backlog that accumulated during the fit."""
+        pre = self._fit_thread
+        if pre is not None and pre.is_alive() and not wait:
+            return
+        with self._fit_lock:
+            thread = self._fit_thread
+            if thread is None:
+                return
+            if thread.is_alive() and not wait:
+                return
+            thread.join()  # the fit thread never takes _fit_lock
+            self._fit_thread = None
+            if self._pending:
+                tokens = np.stack([t for t, _ in self._pending])
+                raws = [r for _, r in self._pending]
+                self._pending = []
+                self._dispatch(tokens, raws)
+
+    def _dispatch(self, tokens: np.ndarray, msgs: List[Any]) -> None:
+        """Score [n, S] tokens: small batches synchronously on the CPU copy,
+        the rest on the device in bucket-sized chunks whose readback is
+        queued without waiting. Every batch joins ``_inflight`` in order."""
+        self._ensure_scorer()
+        n = len(tokens)
+        cap = self.config.host_score_max_batch
+        if 0 < n <= cap and self._host_model is not None:
+            slot = _InflightSlot(list(msgs), n, path="host")
+            slot.scores = self._score_host(tokens)
+            self._inflight.append(slot)
+            self.path_counts["host"] += 1
+            return
+        bucket = _bucket(n, self.config.max_batch)
+        for start, chunk, real in _padded_chunks(tokens, bucket):
+            slot = _InflightSlot(msgs[start:start + real], real, path="device")
+            self._inflight.append(slot)
+            self._readback(slot, self._score_dev(chunk))
+            self.path_counts["device"] += 1
+
+    def _drain_one(self) -> List[Optional[bytes]]:
+        slot = self._inflight.popleft()
+        if slot.event is not None:
+            slot.event.synchronize()
+            scores = slot.scores.numpy()[:slot.real]
+        else:
+            scores = np.asarray(slot.scores)[:slot.real]
+        threshold = self._threshold if self._threshold is not None else float("inf")
+        hits = np.flatnonzero(scores > threshold)
+        out: List[Optional[bytes]] = []
+        for i in hits:  # decode only the anomalous rows
+            msg = ParserSchema.from_bytes(slot.raws[i])
+            out.append(self._make_alert_pb(msg, float(scores[i])))
+        return out
+
+    def flush(self) -> List[Optional[bytes]]:
+        """Idle-time drain: non-blocking on a running fit (a finished fit's
+        backlog is dispatched), then every in-flight batch is drained."""
+        self._finish_fit(wait=False)
+        out = super().flush()
+        while self._inflight:
+            out.extend(self._drain_one())
+        return out
+
+    def flush_final(self) -> List[Optional[bytes]]:
+        """Stop-time drain: waits for a running fit so its backlog is scored
+        and emitted before the caller stops."""
+        self._finish_fit(wait=True)
+        return self.flush()
+
+    def _make_alert_pb(self, msg: ParserSchema, score: float) -> bytes:
+        """Alert for one anomalous message: ``make_output``'s skeleton plus
+        the score."""
+        out = self.make_output(msg)
+        out["score"] = score
+        out["alertsObtain"] = {
+            f"{self.name} - score": f"anomaly score {score:.4f} > {self._threshold:.4f}"}
+        return out.serialize()
+
+    def detect(self, input_: ParserSchema, output_: DetectorSchema) -> bool:
+        """Single-message path: a batch of one, scored on the device."""
+        self._finish_fit(wait=True)
+        if not self._fitted:
+            self.fit()
+        score = float(self.score_tokens(self.featurize(input_)[None])[0])
+        if score > self._threshold:
+            output_["score"] = score
+            output_["alertsObtain"].update(
+                {f"{self.name} - score": f"anomaly score {score:.4f} > {self._threshold:.4f}"})
+            return True
+        return False
+
+    # -- runtime reconfigure --------------------------------------------
+    def validate_reconfigure(self, new_config) -> None:
+        """Veto changes that need a rebuilt model or a refit."""
+        super().validate_reconfigure(new_config)
+        frozen = ("model", "vocab_size", "seq_len", "dim", "depth", "heads",
+                  "score_topk", "score_vocab", "score_norm", "mesh_shape",
+                  "attn_impl", "dtype", "head_impl", "device")
+        for field in frozen:
+            if getattr(new_config, field) != getattr(self.config, field):
+                raise LibraryError(
+                    f"{field!r} cannot change at runtime (old="
+                    f"{getattr(self.config, field)!r} new="
+                    f"{getattr(new_config, field)!r}); restart the service")
+
+    def apply_config(self) -> None:
+        """Re-derive the threshold: an explicit score_threshold wins; a new
+        threshold_sigma recomputes from the stored calibration stats."""
+        super().apply_config()
+        self._validate_static_config()
+        if self.config.score_threshold is not None:
+            self._threshold = float(self.config.score_threshold)
+        elif self._calib_stats is not None:
+            mean, std = self._calib_stats
+            self._threshold = float(mean + self.config.threshold_sigma * std)
+        elif not self._fitted:
+            self._threshold = None
+        else:
+            logger.warning("reconfigure: no stored calibration stats; threshold stays %r",
+                           self._threshold)

@@ -1,0 +1,98 @@
+"""Hashing tokenizer: log text → fixed-shape int32 token ids.
+
+Counterpart of ``detectmateservice_tpu/models/tokenizer.py``, kept as a copy
+so the port imports nothing of the JAX package; its rows are identical
+(pinned by tests/test_torch_tokenizer.py). A feature-hashing tokenizer needs
+no vocabulary file, is deterministic across processes/restarts, and is cheap
+enough for the per-message CPU featurization stage. PAD=0, MASK=1, CLS=2 are
+reserved.
+"""
+from __future__ import annotations
+
+import re
+import zlib
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+PAD_ID = 0
+MASK_ID = 1
+CLS_ID = 2
+_RESERVED = 3
+
+_SPLIT_RE = re.compile(r"[^A-Za-z0-9]+")
+
+
+def _hash_token(token: str, vocab_size: int) -> int:
+    return _RESERVED + zlib.crc32(token.encode("utf-8")) % (vocab_size - _RESERVED)
+
+
+def narrow_tokens(array: np.ndarray, vocab_size: int) -> np.ndarray:
+    """Narrow an int32 token batch to the uint16 wire format when the vocab
+    fits (ids max out at vocab_size-1): half the host→device bytes. Every
+    upload site narrows through this one rule and the scorer widens back to
+    int32 on the device. Non-int32 input is returned unchanged."""
+    if array.dtype == np.int32 and vocab_size <= 65536:
+        return array.astype(np.uint16)
+    return array
+
+
+class HashTokenizer:
+    def __init__(self, vocab_size: int = 32768, seq_len: int = 32,
+                 lowercase: bool = True):
+        if vocab_size <= _RESERVED:
+            raise ValueError("vocab_size too small")
+        self.vocab_size = vocab_size
+        self.seq_len = seq_len
+        self.lowercase = lowercase
+
+    def tokens(self, text: str) -> List[str]:
+        if self.lowercase:
+            text = text.lower()
+        return [t for t in _SPLIT_RE.split(text) if t]
+
+    def encode(self, text: str) -> np.ndarray:
+        """One line → [seq_len] int32, CLS-prefixed, PAD-padded/truncated."""
+        ids = [CLS_ID]
+        for tok in self.tokens(text):
+            ids.append(_hash_token(tok, self.vocab_size))
+            if len(ids) >= self.seq_len:
+                break
+        out = np.full((self.seq_len,), PAD_ID, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out
+
+    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        """Batch of lines → [B, seq_len] int32."""
+        out = np.zeros((len(texts), self.seq_len), dtype=np.int32)
+        for i, text in enumerate(texts):
+            self.encode_into(text, out[i])
+        return out
+
+    def encode_into(self, text: str, out_row: np.ndarray) -> None:
+        """Encode one line into a preallocated zeroed [seq_len] row.
+
+        Hot-path variant: no per-message array allocation.
+        """
+        crc = zlib.crc32
+        vocab = self.vocab_size - _RESERVED
+        seq_len = self.seq_len
+        if self.lowercase:
+            text = text.lower()
+        i = 1
+        out_row[0] = CLS_ID
+        for tok in _SPLIT_RE.split(text):
+            if tok:
+                out_row[i] = _RESERVED + crc(tok.encode("utf-8")) % vocab
+                i += 1
+                if i >= seq_len:
+                    return
+
+    def encode_parsed(self, template: str, variables: Sequence[str],
+                      header_variables: Optional[dict] = None) -> np.ndarray:
+        """ParserSchema content → [seq_len] int32 (template tokens carry the
+        event structure; variable values carry the anomaly signal)."""
+        parts = [template] + list(variables)
+        if header_variables:
+            parts.extend(f"{k}={v}" for k, v in sorted(header_variables.items()))
+        return self.encode(" ".join(parts))

@@ -1,0 +1,96 @@
+"""Build a CUDA source of ``ops/csrc`` into a shared library and load it.
+
+Each kernel source has a plain C interface, so ``nvcc`` compiles it in
+seconds into a ``.so`` that ``ctypes`` loads; no PyTorch headers and no
+``ninja`` are involved. The library goes into ``ops/_build/`` (listed in
+``.gitignore``) under a name keyed by a hash of the source, the flags and
+the target, so an edited source rebuilds and an unchanged one is reused.
+
+Nothing here runs at import time: the first launch of a kernel builds it.
+A failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_DEFAULT_CUDA_HOME = "/usr/local/cuda"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# seconds each source took to compile in this process (0 = cache hit)
+build_seconds: Dict[str, float] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), _DEFAULT_CUDA_HOME):
+        if cand:
+            path = Path(cand) / "bin" / "nvcc"
+            if path.is_file():
+                return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError("nvcc not found (CUDA_HOME, /usr/local/cuda, "
+                               "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(source: str) -> Path:
+    """Where ``source`` (a file name under csrc/) builds to."""
+    text = (CSRC_DIR / source).read_bytes()
+    key = hashlib.sha256(text + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{key.hexdigest()[:16]}.so"
+
+
+def _compile(source: str, out: Path) -> str:
+    """Run nvcc; returns its output (the -Xptxas -v resource report)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd: List[str] = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
+                      str(CSRC_DIR / source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    build_seconds[source] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed on {source} (rc {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return proc.stdout + proc.stderr
+
+
+def build(source: str) -> str:
+    """Compile ``source`` unless its keyed library exists; returns the
+    compiler's report ("" on a cache hit)."""
+    out = library_path(source)
+    if out.is_file():
+        build_seconds.setdefault(source, 0.0)
+        return ""
+    return _compile(source, out)
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, building it on first use."""
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            build(source)
+            lib = ctypes.CDLL(str(library_path(source)))
+            _loaded[source] = lib
+        return lib

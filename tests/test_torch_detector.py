@@ -1,0 +1,326 @@
+"""The port's ``TorchScorerDetector`` against the JAX package's
+``JaxScorerDetector``: the same ParserSchema stream through both, from the
+same bridged initial weights, in fp32 on the CPU. Thresholds, alert
+decisions and alert fields must agree; the options later slices port must
+raise; and the port must import nothing of JAX or the JAX package."""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from detectmateservice_tpu.library.common.core import LibraryError as RefLibraryError
+from detectmateservice_tpu.library.detectors import JaxScorerDetector
+from detectmateservice_tpu.schemas import DetectorSchema as RefDetectorSchema
+from detectmateservice_tpu.schemas import ParserSchema as RefParserSchema
+from detectmateservice_tpu_torch.library.common.core import LibraryError
+from detectmateservice_tpu_torch.library.detectors import TorchScorerDetector
+from detectmateservice_tpu_torch.models.convert import params_from_flax
+from detectmateservice_tpu_torch.schemas import DetectorSchema
+
+REPO = Path(__file__).resolve().parents[1]
+N_TRAIN = 128
+BASE = {
+    "auto_config": False, "model": "mlp", "data_use_training": N_TRAIN,
+    "train_epochs": 1, "min_train_steps": 10, "train_batch_size": 32,
+    "seq_len": 16, "dim": 32, "vocab_size": 4096, "max_batch": 64,
+    "pipeline_depth": 2, "threshold_sigma": 3.0, "dtype": "float32",
+    "async_fit": False, "host_score_max_batch": 16, "head_impl": "pallas",
+}
+# call sizes: full buckets, a ragged bucket, and host-path batches (<= 16)
+CHUNKS = [64, 64, 50, 10, 64, 3, 64, 64, 33, 16]
+
+
+def make_messages(n, anomaly_rate=0.05, seed=0):
+    """bench.py's stream: audit lines with injected segfault anomalies."""
+    rng = np.random.default_rng(seed)
+    msgs = []
+    for i in range(n):
+        if rng.random() < anomaly_rate and i >= N_TRAIN:
+            template, variables = "segfault at <*> ip <*> sp <*>", [
+                hex(rng.integers(2**30)) for _ in range(3)]
+        else:
+            template, variables = "type=<*> msg=audit(<*>): pid=<*> uid=<*> comm=<*>", [
+                "SYSCALL", f"17000{i % 100}.{i % 997}", str(int(rng.integers(300, 500))),
+                str(int(rng.integers(0, 4))), ["cron", "sshd", "systemd", "bash"][i % 4]]
+        msgs.append(RefParserSchema(
+            EventID=1, template=template, variables=variables, logID=str(i),
+            logFormatVariables={"Time": str(1_700_000_000 + i)}).serialize())
+    return msgs
+
+
+STREAM = make_messages(N_TRAIN + sum(CHUNKS))
+
+
+def _pair(**overrides):
+    """A JAX and a port detector with the same config and the same initial
+    weights (the JAX detector's seeded init, bridged into the port)."""
+    cfg = dict(BASE, **overrides)
+    jax_det = JaxScorerDetector(name="scorer", config=dict(cfg, method_type="jax_scorer"))
+    port_det = TorchScorerDetector(name="scorer", config=dict(
+        cfg, method_type="torch_scorer", device="cpu"))
+    jax_det._ensure_scorer()
+    port_det.load_params(params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                                 jax_det._params)))
+    port_det.setup_io()
+    return jax_det, port_det
+
+
+def _run(det, stream=STREAM, chunks=(N_TRAIN, *CHUNKS)):
+    out, pos = [], 0
+    for size in chunks:
+        out.extend(det.process_batch(stream[pos:pos + size]))
+        pos += size
+    out.extend(det.flush_final())
+    return out
+
+
+def _by_log_id(alerts, schema):
+    parsed = [schema.from_bytes(a) for a in alerts]
+    return {p["logIDs"][0]: p for p in parsed}
+
+
+def _ref_scores(jax_det):
+    """The JAX detector's score of every detect-phase message, by logID."""
+    tokens, ok = jax_det._featurize_raw_batch(STREAM[N_TRAIN:])
+    assert ok.all()
+    scores = jax_det.score_tokens(tokens)
+    return {str(N_TRAIN + i): float(s) for i, s in enumerate(scores)}
+
+
+@pytest.fixture(scope="module")
+def fitted_pair():
+    jax_det, port_det = _pair()
+    return jax_det, port_det, _run(jax_det), _run(port_det)
+
+
+@pytest.fixture(scope="module")
+def pinned_pair(fitted_pair):
+    threshold = fitted_pair[0]._threshold
+    jax_det, port_det = _pair(score_threshold=threshold)
+    return jax_det, port_det, _run(jax_det), _run(port_det), threshold
+
+
+class TestAgainstJaxDetector:
+    def test_fitted_thresholds_match(self, fitted_pair):
+        jax_det, port_det, _, _ = fitted_pair
+        assert np.isfinite(port_det._threshold)
+        np.testing.assert_allclose(port_det._threshold, jax_det._threshold, rtol=1e-3)
+        np.testing.assert_allclose(port_det._calib_stats, jax_det._calib_stats, rtol=1e-3)
+
+    def test_position_norm_thresholds_match(self):
+        jax_det, port_det = _pair(score_norm="position")
+        _run(jax_det, chunks=(N_TRAIN, 64))
+        _run(port_det, chunks=(N_TRAIN, 64))
+        np.testing.assert_allclose(port_det._norm_mu, jax_det._norm_mu, rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(port_det._norm_sigma, jax_det._norm_sigma,
+                                   rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(port_det._threshold, jax_det._threshold, rtol=1e-3)
+
+    def test_pinned_threshold_alert_decisions_identical(self, pinned_pair):
+        jax_det, port_det, jax_out, port_out, threshold = pinned_pair
+        assert port_det._threshold == jax_det._threshold == threshold
+        jax_alerts = _by_log_id(jax_out, RefDetectorSchema)
+        port_alerts = _by_log_id(port_out, DetectorSchema)
+        assert jax_alerts and len(jax_alerts) < sum(CHUNKS)
+        scores = _ref_scores(jax_det)
+        for log_id in set(jax_alerts) ^ set(port_alerts):
+            assert abs(scores[log_id] - threshold) < 1e-3, log_id
+        # the device path and the host path both ran on both sides
+        assert port_det.path_counts["device"] > 0 and port_det.path_counts["host"] > 0
+
+    def test_alert_fields_match(self, pinned_pair):
+        jax_det, port_det, jax_out, port_out, _ = pinned_pair
+        assert len(port_out) == len(jax_out)
+        for raw_port, raw_jax in zip(port_out, jax_out):
+            got = DetectorSchema.from_bytes(raw_port).to_dict()
+            want = RefDetectorSchema.from_bytes(raw_jax).to_dict()
+            for key in ("detectionTimestamp", "receivedTimestamp"):
+                assert got.pop(key) > 0 and want.pop(key) > 0
+            np.testing.assert_allclose(got.pop("score"), want.pop("score"), rtol=1e-4)
+            got_obtain, want_obtain = got.pop("alertsObtain"), want.pop("alertsObtain")
+            assert list(got_obtain) == list(want_obtain) == ["scorer - score"]
+            assert got_obtain["scorer - score"].split(" > ")[1] == \
+                want_obtain["scorer - score"].split(" > ")[1]
+            assert got.pop("detectorType") == "torch_scorer"
+            assert want.pop("detectorType") == "jax_scorer"
+            assert got.pop("description") == TorchScorerDetector.description
+            assert want.pop("description") == JaxScorerDetector.description
+            assert got == want
+
+    def test_single_message_process_path_matches(self, pinned_pair):
+        threshold = pinned_pair[4]
+        jax_det, port_det = _pair(score_threshold=threshold)
+        stream = STREAM[:N_TRAIN + 40]
+        jax_out = [jax_det.process(m) for m in stream]
+        port_out = [port_det.process(m) for m in stream]
+        assert jax_out[:N_TRAIN] == port_out[:N_TRAIN] == [None] * N_TRAIN
+        scores = _ref_scores(jax_det)
+        for i in range(N_TRAIN, len(stream)):
+            if (jax_out[i] is None) != (port_out[i] is None):
+                assert abs(scores[str(i)] - threshold) < 1e-3
+        hits = [o for o in port_out if o is not None]
+        assert hits and DetectorSchema.from_bytes(hits[0])["score"] > threshold
+
+
+def test_reconfigure_matches_the_jax_detector():
+    """A live threshold_sigma change recomputes the threshold from the stored
+    calibration stats; fields that need a rebuilt model are refused."""
+    jax_det, port_det = _pair()
+    _run(jax_det, chunks=(N_TRAIN, 16))
+    _run(port_det, chunks=(N_TRAIN, 16))
+    port_cfg = dict(BASE, method_type="torch_scorer", device="cpu")
+    jax_det.reconfigure(dict(BASE, method_type="jax_scorer", threshold_sigma=1.0))
+    port_det.reconfigure(dict(port_cfg, threshold_sigma=1.0))
+    mean, std = port_det._calib_stats
+    assert port_det._threshold == pytest.approx(mean + std)
+    np.testing.assert_allclose(port_det._threshold, jax_det._threshold, rtol=1e-3)
+    port_det.reconfigure(dict(port_cfg, score_threshold=7.5))
+    assert port_det._threshold == 7.5
+    with pytest.raises(LibraryError, match="dim"):
+        port_det.reconfigure(dict(port_cfg, dim=64))
+    with pytest.raises(LibraryError, match="device"):
+        port_det.reconfigure(dict(port_cfg, device="cuda:0"))
+    with pytest.raises(RefLibraryError, match="dim"):
+        jax_det.reconfigure(dict(BASE, method_type="jax_scorer", dim=64))
+
+
+def test_unparseable_time_falls_back_to_now_in_alerts():
+    """A ``Time`` of "1e400" overflows ``int``; the alert then carries the
+    detection time, as ``CoreDetector.extract_timestamp`` treats it (the JAX
+    detector's batched alert raises OverflowError here)."""
+    det = TorchScorerDetector(name="scorer", config=dict(
+        BASE, method_type="torch_scorer", device="cpu", score_threshold=-1.0,
+        data_use_training=0))
+    raw = RefParserSchema(template="t <*>", variables=["v"], logID="9",
+                          logFormatVariables={"Time": "1e400"}).serialize()
+    out = det.process_batch([raw]) + det.flush_final()
+    alert = DetectorSchema.from_bytes(out[0])
+    assert alert["extractedTimestamps"] == [alert["detectionTimestamp"]]
+
+
+class TestAsyncFit:
+    def test_output_order_kept(self, fitted_pair):
+        _, sync_det, _, sync_out = fitted_pair
+        jax_det = JaxScorerDetector(name="scorer", config=dict(BASE, method_type="jax_scorer"))
+        jax_det._ensure_scorer()
+        det = TorchScorerDetector(name="scorer", config=dict(
+            BASE, method_type="torch_scorer", device="cpu", async_fit=True))
+        det.load_params(params_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                                jax_det._params)))
+        # the boundary fit starts mid-call; later calls land in the backlog
+        out = _run(det, chunks=(N_TRAIN - 20, 84, *CHUNKS[1:], 20))
+        ids = [int(DetectorSchema.from_bytes(a)["logIDs"][0]) for a in out]
+        assert ids == sorted(ids)
+        want = [int(DetectorSchema.from_bytes(a)["logIDs"][0]) for a in sync_out]
+        assert ids == want
+        assert det._fit_thread is None and not det._pending
+
+
+class TestNotYetPorted:
+    @pytest.mark.parametrize("field,value,slice_name", [
+        ("model", "gru", "gru/logbert"),
+        ("model", "logbert", "gru/logbert"),
+        ("dtype", "int8w", "int8w"),
+        ("mesh_shape", {"data": 1}, "multi-GPU"),
+        ("batch_deadline_ms", 5.0, "coalescer"),
+        ("upload_workers", 1, "upload-worker"),
+        ("featurize_threads", 2, "native featurize"),
+    ])
+    def test_raises_naming_the_later_slice(self, field, value, slice_name):
+        with pytest.raises(LibraryError, match=slice_name):
+            TorchScorerDetector(config=dict(BASE, method_type="torch_scorer",
+                                            device="cpu", **{field: value}))
+
+    @pytest.mark.parametrize("field,value", [
+        ("head_impl", "cuda"), ("score_norm", "zscore"), ("dtype", "float8"),
+        ("batch_target_occupancy", 0.0), ("model", "rnn")])
+    def test_bad_values_rejected_as_the_jax_detector_rejects_them(self, field, value):
+        cfg = dict(BASE, **{field: value})
+        with pytest.raises(RefLibraryError):
+            JaxScorerDetector(config=dict(cfg, method_type="jax_scorer"))
+        with pytest.raises(LibraryError):
+            TorchScorerDetector(config=dict(cfg, method_type="torch_scorer"))
+
+    def test_config_mirrors_the_jax_config_field_for_field(self):
+        from detectmateservice_tpu.library.detectors.jax_scorer import (
+            JaxScorerDetectorConfig,
+        )
+        from detectmateservice_tpu_torch.library.detectors import TorchScorerDetectorConfig
+
+        ref = JaxScorerDetectorConfig()
+        port = TorchScorerDetectorConfig()
+        for name, field in JaxScorerDetectorConfig.model_fields.items():
+            if name == "method_type":
+                continue
+            assert getattr(port, name) == getattr(ref, name), name
+        assert port.method_type == "torch_scorer"
+
+
+class TestDevice:
+    @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+    def test_cuda_without_a_card_raises(self, device, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        det = TorchScorerDetector(config=dict(BASE, method_type="torch_scorer",
+                                              device=device))
+        with pytest.raises(LibraryError, match="CUDA"):
+            det.setup_io()
+
+    @pytest.mark.parametrize("device", ["tpu:0", "gpu", "cuda:x"])
+    def test_unknown_device_raises(self, device):
+        det = TorchScorerDetector(config=dict(BASE, method_type="torch_scorer",
+                                              device=device))
+        with pytest.raises(LibraryError, match="device"):
+            det.setup_io()
+
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "detectmateservice_tpu",
+              "google.protobuf", "pydantic")
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """In a fresh interpreter (tests/conftest.py has already imported jax in
+    this one): the port, its detector, its ops and chip_smoke.py load
+    without any of the forbidden modules."""
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import detectmateservice_tpu_torch\n"
+        "import detectmateservice_tpu_torch.library.detectors.torch_scorer\n"
+        "import detectmateservice_tpu_torch.ops.scorehead\n"
+        "import detectmateservice_tpu_torch.ops.cuda_build\n"
+        "import detectmateservice_tpu_torch.models.convert\n"
+        "import detectmateservice_tpu_torch.utils.device\n"
+        "import chip_smoke\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
+                          text=True, cwd=REPO, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    bad = [m for m in loaded
+           if any(m == f or m.startswith(f + ".") for f in _FORBIDDEN)]
+    assert bad == []
+    assert "detectmateservice_tpu_torch.library.detectors.torch_scorer" in loaded
+
+
+def test_no_forbidden_import_statement_anywhere_in_the_port():
+    """Lazy imports inside functions included: no source file of the port,
+    and not chip_smoke.py, names a forbidden module in an import."""
+    import ast
+
+    files = sorted((REPO / "detectmateservice_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not any(name == f or name.startswith(f + ".") for f in _FORBIDDEN), \
+                    f"{path.relative_to(REPO)} imports {name}"
