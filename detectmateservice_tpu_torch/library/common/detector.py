@@ -23,6 +23,12 @@ from ..utils.data_buffer import BufferMode, DataBuffer
 from .core import CoreComponent, CoreConfig, LibraryError
 
 
+def _extra(raw: Dict[str, Any], declared) -> Dict[str, Any]:
+    """The keys of ``raw`` no field declares, kept as given (the pydantic
+    models of the JAX package allow extra keys)."""
+    return {k: v for k, v in raw.items() if k not in declared}
+
+
 def _params(value: Any, where: str) -> Dict[str, Any]:
     if value is None:
         return {}
@@ -39,6 +45,8 @@ class Variable:
     pos: Union[int, str]
     name: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # keys no field declares, kept as given and dumped back
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def label(self) -> str:
@@ -54,7 +62,8 @@ class Variable:
         name = raw.get("name")
         if name is not None and not isinstance(name, str):
             raise LibraryError(f"{where}: name must be a str")
-        return cls(pos=pos, name=name, params=_params(raw.get("params"), where))
+        return cls(pos=pos, name=name, params=_params(raw.get("params"), where),
+                   extra=_extra(raw, ("pos", "name", "params")))
 
 
 @dataclasses.dataclass
@@ -63,6 +72,7 @@ class HeaderVariable:
 
     pos: str
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def label(self) -> str:
@@ -72,7 +82,8 @@ class HeaderVariable:
     def parse(cls, raw: Any, where: str) -> "HeaderVariable":
         if not isinstance(raw, dict) or not isinstance(raw.get("pos"), str):
             raise LibraryError(f"{where}: a header variable needs a str 'pos'")
-        return cls(pos=raw["pos"], params=_params(raw.get("params"), where))
+        return cls(pos=raw["pos"], params=_params(raw.get("params"), where),
+                   extra=_extra(raw, ("pos", "params")))
 
 
 @dataclasses.dataclass
@@ -82,6 +93,7 @@ class InstanceConfig:
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     variables: List[Variable] = dataclasses.field(default_factory=list)
     header_variables: List[HeaderVariable] = dataclasses.field(default_factory=list)
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def get_all(self) -> Dict[str, Union[Variable, HeaderVariable]]:
         """All watched fields keyed by label."""
@@ -102,7 +114,8 @@ class InstanceConfig:
             params=_params(raw.get("params"), where),
             variables=[Variable.parse(v, where) for v in raw.get("variables") or []],
             header_variables=[HeaderVariable.parse(v, where)
-                              for v in raw.get("header_variables") or []])
+                              for v in raw.get("header_variables") or []],
+            extra=_extra(raw, ("params", "variables", "header_variables")))
 
 
 def _parse_instances(raw: Any, where: str) -> Dict[str, InstanceConfig]:

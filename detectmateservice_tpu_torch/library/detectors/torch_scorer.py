@@ -1,9 +1,9 @@
 """TorchScorerDetector: GPU-batched neural anomaly scoring.
 
 Counterpart of ``detectmateservice_tpu/library/detectors/jax_scorer.py``
-(``JaxScorerDetector``) on PyTorch and CUDA, for the ``mlp`` scorer. The
-same CoreDetector contract (train-then-detect, alert-or-None per message)
-and the same phases:
+(``JaxScorerDetector``) on PyTorch and CUDA, for the ``mlp`` and ``logbert``
+scorers. The same CoreDetector contract (train-then-detect, alert-or-None
+per message) and the same phases:
 
 1. **train** — the first ``data_use_training`` messages are tokenized and
    buffered (filtered from the output),
@@ -19,13 +19,16 @@ and the same phases:
    the threshold become DetectorSchema alerts, in input order.
 
 ``head_impl: pallas`` scores through the hand-written CUDA kernel of
-``ops/scorehead.py`` (the name is the JAX package's, so one config drives
-both packages). Batches of at most ``host_score_max_batch`` rows score on a
-CPU copy of the module through the einsum head, as the JAX detector's host
-twin does.
+``ops/scorehead.py``, and ``model: logbert`` with ``attn_impl: flash`` (or
+``auto`` at ``seq_len >= FLASH_MIN_SEQ`` on CUDA) attends through the
+hand-written CUDA kernels of ``ops/flash.py``, in scoring and in the fit
+(the names are the JAX package's, so one config drives both packages).
+Batches of at most ``host_score_max_batch`` rows score on a CPU copy of the
+module through the einsum head, as the JAX detector's host twin does; a
+logbert whose attention can take the flash kernels has no such copy.
 
 Options of the JAX detector that later slices port raise ``LibraryError``
-when set away from their defaults: ``model`` other than ``mlp``,
+when set away from their defaults: ``model: gru``, ``attn_impl: ring``,
 ``dtype: int8w``, ``mesh_shape``, ``batch_deadline_ms > 0``,
 ``upload_workers > 0``, ``featurize_threads > 0``. ``native_featurize`` is
 accepted; featurization runs in Python here (rows identical to the native
@@ -42,9 +45,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...models.base import ScorerBase
+from ...models.logbert import LogBERTConfig, LogBERTScorer
 from ...models.mlp import MLPScorer, MLPScorerConfig
 from ...models.tokenizer import PAD_ID, HashTokenizer, narrow_tokens
-from ...ops import scorehead
+from ...ops import flash, scorehead
+from ...ops.attention import FLASH_MIN_SEQ
 from ...schemas import DetectorSchema, ParserSchema, SchemaError
 from ...utils.device import resolve_device
 from ..common.core import LibraryError
@@ -149,10 +155,13 @@ class TorchScorerDetector(CoreDetector):
         self._validate_static_config()
         self._tokenizer = HashTokenizer(vocab_size=self.config.vocab_size,
                                         seq_len=self.config.seq_len)
-        self._scorer: Optional[MLPScorer] = None
+        self._scorer: Optional[ScorerBase] = None
         self._model: Optional[torch.nn.Module] = None
         self._optimizer: Optional[torch.optim.Optimizer] = None
         self._device: Optional[torch.device] = None
+        # seeds one generator per train step (the JAX detector splits
+        # its PRNG key per step)
+        self._step_seeds: Optional[torch.Generator] = None
         self._threshold: Optional[float] = self.config.score_threshold
         # (mean, std) of the calibration scores: a runtime threshold_sigma
         # change recomputes the threshold without a refit
@@ -168,7 +177,7 @@ class TorchScorerDetector(CoreDetector):
         self._fit_lock = threading.Lock()
         self._pending: List[Tuple[np.ndarray, bytes]] = []  # backlog during fit
         # CPU copy for small batches (einsum head), synced after each fit
-        self._host_scorer: Optional[MLPScorer] = None
+        self._host_scorer: Optional[ScorerBase] = None
         self._host_model: Optional[torch.nn.Module] = None
         self._host_norm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._inflight: deque = deque()
@@ -208,7 +217,9 @@ class TorchScorerDetector(CoreDetector):
                 "bucket_retire_interval_s must be >= 0 "
                 f"(got {cfg.bucket_retire_interval_s})")
         later = {
-            "model": (cfg.model != "mlp", "the gru/logbert slice"),
+            "model": (cfg.model == "gru", "the gru slice"),
+            "attn_impl": (cfg.model == "logbert" and cfg.attn_impl == "ring",
+                          "the multi-GPU slice"),
             "dtype": (cfg.dtype == "int8w", "the int8w slice"),
             "mesh_shape": (cfg.mesh_shape is not None, "the multi-GPU slice"),
             "batch_deadline_ms": (cfg.batch_deadline_ms > 0,
@@ -227,8 +238,9 @@ class TorchScorerDetector(CoreDetector):
     # -- lifecycle ------------------------------------------------------
     def setup_io(self) -> None:
         """Resolve the device, build the model with params initialized on
-        it, build the CUDA kernel the head needs, and run each bucket the
-        JAX detector compiles at boot once (allocator and kernel warm-up)."""
+        it, build the CUDA kernels the configured path runs (the fused head,
+        the flash kernels), and run each bucket the JAX detector compiles at
+        boot once (allocator and kernel warm-up)."""
         self._ensure_scorer()
         cfg = self.config
         small = () if cfg.host_score_max_batch > 0 else (1, 8)
@@ -242,23 +254,54 @@ class TorchScorerDetector(CoreDetector):
         cfg = self.config
         self._validate_static_config()
         device = resolve_device(cfg.device)
-        if cfg.head_impl == "pallas" and device.type == "cuda":
-            # fail at boot, not per batch: nvcc missing or refusing the
-            # kernel stops the detector here
-            scorehead.build_kernel()
-        scorer = MLPScorer(MLPScorerConfig(
-            vocab_size=cfg.vocab_size, dim=cfg.dim, seq_len=cfg.seq_len,
-            dtype=_DTYPES[cfg.dtype], head_impl=cfg.head_impl))
+        if device.type == "cuda":
+            # fail at boot, not per batch: nvcc missing or refusing a kernel
+            # the configured path runs stops the detector here
+            if cfg.head_impl == "pallas":
+                scorehead.build_kernel()
+            if self._flash_reachable():
+                flash.build_kernel()
+        scorer = self._build_scorer()
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         self._model = scorer.init_model(device, generator)
         self._optimizer = scorer.make_optimizer(self._model)
         self._device = device
-        if cfg.host_score_max_batch > 0:
+        self._step_seeds = torch.Generator().manual_seed(cfg.seed)
+        if cfg.host_score_max_batch > 0 and self._host_scoring_possible():
             # the host copy scores through the einsum head whatever the
             # device head is, like the JAX detector's host twin
-            self._host_scorer = MLPScorer(
+            self._host_scorer = type(scorer)(
                 dataclasses.replace(scorer.config, head_impl="einsum"))
         self._scorer = scorer
+
+    def _build_scorer(self) -> ScorerBase:
+        """The scorer the config names, as ``jax_scorer.py`` builds it."""
+        cfg = self.config
+        dtype = _DTYPES[cfg.dtype]
+        if cfg.model == "logbert":
+            return LogBERTScorer(LogBERTConfig(
+                vocab_size=cfg.vocab_size, dim=cfg.dim, depth=cfg.depth,
+                heads=cfg.heads, seq_len=cfg.seq_len, score_topk=cfg.score_topk,
+                attn_impl=cfg.attn_impl, score_vocab=cfg.score_vocab,
+                head_impl=cfg.head_impl, dtype=dtype))
+        return MLPScorer(MLPScorerConfig(
+            vocab_size=cfg.vocab_size, dim=cfg.dim, seq_len=cfg.seq_len,
+            dtype=dtype, head_impl=cfg.head_impl))
+
+    def _flash_reachable(self) -> bool:
+        """Whether the model's attention can take the flash kernels on a
+        CUDA device (``attention()``'s routing)."""
+        cfg = self.config
+        return cfg.model == "logbert" and (
+            cfg.attn_impl == "flash"
+            or (cfg.attn_impl == "auto" and cfg.seq_len >= FLASH_MIN_SEQ))
+
+    def _host_scoring_possible(self) -> bool:
+        """Whether the model can score on the host CPU copy: a logbert whose
+        attention takes the flash kernels is device-only, as in the JAX
+        detector (``ring``, device-only there too, is refused at
+        construction), so its small batches ride the device path."""
+        return not self._flash_reachable()
 
     def load_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Install weights (a ``state_dict``, e.g. from
@@ -343,7 +386,12 @@ class TorchScorerDetector(CoreDetector):
         return np.where(np.isneginf(zmax), 0.0, zmax).astype(np.float32)
 
     def _train_step(self, batch: np.ndarray) -> float:
-        loss = self._scorer.train_step(self._model, self._optimizer, self._put(batch))
+        """One optimizer step with its own generator, seeded from the
+        detector's seed stream (the masked-LM mask is drawn from it)."""
+        seed = int(torch.randint(0, 2**62, (1,), generator=self._step_seeds))
+        generator = torch.Generator(device=self._device).manual_seed(seed)
+        loss = self._scorer.train_step(self._model, self._optimizer, self._put(batch),
+                                       generator=generator)
         return float(loss)
 
     # -- featurization (host side) --------------------------------------

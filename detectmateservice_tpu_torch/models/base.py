@@ -1,8 +1,8 @@
 """Shared scorer scaffolding: the per-position NLL reductions and the
 scorer surface the detector programs against.
 
-Counterpart of the scorer part of ``detectmateservice_tpu/models/base.py``
-(``reduce_nlls``, ``token_nll``, ``positional_z_max``, ``ScorerBase``).
+Counterpart of ``detectmateservice_tpu/models/base.py`` (``reduce_nlls``,
+``token_nll``, ``positional_z_max``, ``ScorerBase``, ``SequenceScorerBase``).
 A scorer here is stateless over its module: ``score(model, tokens)`` takes
 the ``nn.Module`` the way the JAX scorer takes its params, so the detector
 can score the same weights on the device and on a CPU copy. Token batches
@@ -11,8 +11,10 @@ may arrive in the narrow wire format (int16 bits of uint16 ids, see
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..ops.scorehead import candidate_lse
@@ -101,10 +103,16 @@ class ScorerBase:
         raise NotImplementedError
 
     def train_step(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                   tokens: torch.Tensor) -> torch.Tensor:
+                   tokens: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One optimizer step; ``generator`` (on the tokens' device) feeds
+        any randomness the step draws."""
         raise NotImplementedError
 
     # -- shared surface -------------------------------------------------
+    def _use_pallas_head(self) -> bool:
+        return getattr(self.config, "head_impl", "auto") == "pallas"
+
     @staticmethod
     def _pallas_lse_rows(rows: torch.Tensor, emb_matrix: torch.Tensor) -> torch.Tensor:
         """[N] logsumexp of rows·emb_matrixᵀ through the fused head
@@ -139,3 +147,133 @@ class ScorerBase:
         return torch.optim.AdamW(model.parameters(), lr=self.config.learning_rate,
                                  betas=ADAMW_BETAS, eps=ADAMW_EPS,
                                  weight_decay=ADAMW_WEIGHT_DECAY)
+
+
+class SequenceScorerBase(ScorerBase):
+    """Scoring for models with per-position predictions (logbert): anomaly
+    score = (top-k) mean NLL of the observed tokens.
+
+    Counterpart of the JAX package's ``SequenceScorerBase``. NLLs come from
+    the model's [B, S, D] final hidden states (``model.hidden``), never from
+    the [B, S, V] logits: the exact einsum head works in S-chunks whose fp32
+    logits stay within ``_CHUNK_ELEMENT_BUDGET``; ``head_impl: pallas`` takes
+    the logsumexp from the fused head (``ops/scorehead.py``) and the target
+    logit from a direct hidden·emb[token] dot. ``score_vocab`` in (0, V)
+    estimates the logsumexp over a fixed seeded candidate subset of the
+    vocab with the ``+ log(V/C)`` correction; the target logit stays exact.
+    """
+
+    # fp32 elements the per-chunk logits may occupy (1 GiB); the largest
+    # divisor of S that fits becomes the chunk length
+    _CHUNK_ELEMENT_BUDGET = 1 << 28
+
+    @torch.no_grad()
+    def score(self, model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, S] → [B] fp32 (top-k) mean NLL of the non-PAD tokens."""
+        tokens = widen_tokens(tokens)
+        nlls = self._token_nlls_impl(model, tokens)
+        mask = (tokens != PAD_ID).float()
+        return reduce_nlls(nlls, mask, getattr(self.config, "score_topk", 0))
+
+    @torch.no_grad()
+    def token_nlls(self, model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, S] per-position NLL (PAD positions → 0)."""
+        return self._token_nlls_impl(model, widen_tokens(tokens))
+
+    @torch.no_grad()
+    def normscore(self, model: torch.nn.Module, tokens: torch.Tensor,
+                  mu: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        tokens = widen_tokens(tokens)
+        return positional_z_max(self._token_nlls_impl(model, tokens), tokens, mu, sigma)
+
+    def _candidate_ids(self, vocab: int, n: int) -> np.ndarray:
+        """Fixed, seeded candidate subset (sorted int32 ids): the same
+        (vocab, n) always gives the same ids, the JAX package's included, so
+        calibration and detection score with the same approximation."""
+        cached = getattr(self, "_cand_cache", None)
+        if cached is None or cached[0] != (vocab, n):
+            ids = np.random.default_rng(0x5EED).choice(vocab, size=n, replace=False)
+            self._cand_cache = ((vocab, n), np.sort(ids).astype(np.int32))
+        return self._cand_cache[1]
+
+    @classmethod
+    def _pallas_lse(cls, hidden: torch.Tensor, emb_matrix: torch.Tensor) -> torch.Tensor:
+        """[B, S] logsumexp of hidden·emb_matrixᵀ through the fused head."""
+        b, s, d = hidden.shape
+        return cls._pallas_lse_rows(hidden.reshape(b * s, d), emb_matrix).reshape(b, s)
+
+    @staticmethod
+    def _lse_low_precision(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """logsumexp with the exp in the compute dtype and the sum in fp32,
+        after subtracting the row max."""
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp((logits - m).to(dtype))
+        total = e.sum(dim=-1, dtype=torch.float32)
+        return torch.log(total) + m[..., 0].float()
+
+    def _token_nlls_impl(self, model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        score_vocab = int(getattr(self.config, "score_vocab", 0) or 0)
+        if score_vocab > 0:
+            return self._token_nlls_candidate(model, tokens, score_vocab)
+        return self._token_nlls_exact(model, tokens)
+
+    @staticmethod
+    def _target_logits(hidden: torch.Tensor, emb: torch.Tensor,
+                       tokens: torch.Tensor) -> torch.Tensor:
+        """[B, S] fp32 hidden·emb[token] (products of compute-dtype values,
+        summed in fp32)."""
+        return (hidden.float() * emb[tokens].float()).sum(dim=-1)
+
+    def _token_nlls_candidate(self, model: torch.nn.Module, tokens: torch.Tensor,
+                              n_cand: int) -> torch.Tensor:
+        dtype = self.config.dtype
+        emb = model.tok_embed.weight
+        v = emb.shape[0]
+        if n_cand >= v:
+            return self._token_nlls_exact(model, tokens)
+        hidden = model.hidden(tokens).to(dtype)
+        emb = emb.to(dtype)
+        ids = torch.from_numpy(self._candidate_ids(v, n_cand)).to(emb.device).long()
+        emb_c = emb[ids]                                     # [C, D]
+        correction = math.log(float(v) / n_cand)
+        tgt = self._target_logits(hidden, emb, tokens)
+        mask = (tokens != PAD_ID).float()
+        b, s, _ = hidden.shape
+        if self._use_pallas_head():
+            lse = self._pallas_lse(hidden, emb_c) + correction
+            return -(tgt - lse) * mask
+        # candidate logits stay in the compute dtype, so a chunk of S holds
+        # 4 / itemsize times the fp32 budget's rows
+        elem_bytes = torch.empty((), dtype=dtype).element_size()
+        budget = self._CHUNK_ELEMENT_BUDGET * 4 // max(1, elem_bytes)
+        sc = max(1, min(s, budget // max(1, b * n_cand)))
+        while s % sc:
+            sc -= 1
+        lse = torch.cat([self._lse_low_precision(hidden[:, c:c + sc] @ emb_c.T, dtype)
+                         for c in range(0, s, sc)], dim=1) + correction
+        return -(tgt - lse) * mask
+
+    def _token_nlls_exact(self, model: torch.nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-vocab per-position NLL: compute-dtype operands, fp32
+        products and sums, chunked over S (einsum head) or through the
+        fused head (``head_impl: pallas``)."""
+        dtype = self.config.dtype
+        hidden = model.hidden(tokens).to(dtype)
+        emb = model.tok_embed.weight.to(dtype)
+        mask = (tokens != PAD_ID).float()
+        b, s, _ = hidden.shape
+        v = emb.shape[0]
+        if self._use_pallas_head():
+            lse = self._pallas_lse(hidden, emb)
+            return -(self._target_logits(hidden, emb, tokens) - lse) * mask
+        sc = max(1, min(s, self._CHUNK_ELEMENT_BUDGET // max(1, b * v)))
+        while s % sc:
+            sc -= 1
+        emb_t = emb.float().T
+        parts = []
+        for c in range(0, s, sc):
+            logits = hidden[:, c:c + sc].float() @ emb_t
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, tokens[:, c:c + sc, None])[..., 0]
+            parts.append(tgt - lse)
+        return -torch.cat(parts, dim=1) * mask

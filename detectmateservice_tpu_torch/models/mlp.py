@@ -102,9 +102,6 @@ class MLPScorer(ScorerBase):
         init_lecun_normal_(model.fc1, generator)
         init_lecun_normal_(model.fc2, generator)
 
-    def _use_pallas_head(self) -> bool:
-        return self.config.head_impl == "pallas"
-
     def _pallas_token_logprobs(self, model: EmbedMLPModel,
                                tokens: torch.Tensor) -> torch.Tensor:
         """[B, S] per-token log-probs via the fused head: lse from the
@@ -144,8 +141,10 @@ class MLPScorer(ScorerBase):
         return positional_z_max(self.token_nlls(model, tokens), tokens, mu, sigma)
 
     def train_step(self, model: EmbedMLPModel, optimizer: torch.optim.Optimizer,
-                   tokens: torch.Tensor) -> torch.Tensor:
-        """One AdamW step on the mean bag NLL; returns the (pre-step) loss."""
+                   tokens: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One AdamW step on the mean bag NLL; returns the (pre-step) loss.
+        The step draws nothing, so ``generator`` is unused."""
         tokens = widen_tokens(tokens)
         loss = bag_nll(model(tokens), tokens).mean()
         optimizer.zero_grad(set_to_none=True)

@@ -58,31 +58,58 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{key.hexdigest()[:16]}.so"
 
 
-def _compile(source: str, out: Path) -> str:
-    """Run nvcc; returns its output (the -Xptxas -v resource report)."""
+def _start(source: str, out: Path):
+    """Start nvcc on ``source``; returns (process, temp output, start time)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd: List[str] = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
                       str(CSRC_DIR / source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish(source: str, out: Path, proc, tmp: Path, t0: float) -> str:
+    """Wait for nvcc; returns its output (the -Xptxas -v resource report)."""
+    stdout, stderr = proc.communicate()
     build_seconds[source] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise KernelBuildError(
-            f"nvcc failed on {source} (rc {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}")
+            f"nvcc failed on {source} (rc {proc.returncode}):\n{stdout}\n{stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return proc.stdout + proc.stderr
+    return stdout + stderr
+
+
+def build_all(sources: List[str]) -> Dict[str, str]:
+    """Compile every source whose keyed library is missing, one nvcc each,
+    all started together; returns each compiler's report ("" on a cache
+    hit). Every started nvcc is waited for, even when one fails."""
+    reports: Dict[str, str] = {}
+    started = []
+    try:
+        for source in sources:
+            out = library_path(source)
+            if out.is_file():
+                build_seconds.setdefault(source, 0.0)
+                reports[source] = ""
+            else:
+                started.append((source, out, *_start(source, out)))
+    finally:
+        errors = []
+        for source, out, proc, tmp, t0 in started:
+            try:
+                reports[source] = _finish(source, out, proc, tmp, t0)
+            except KernelBuildError as exc:
+                errors.append(str(exc))
+        if errors:
+            raise KernelBuildError("\n".join(errors))
+    return reports
 
 
 def build(source: str) -> str:
     """Compile ``source`` unless its keyed library exists; returns the
     compiler's report ("" on a cache hit)."""
-    out = library_path(source)
-    if out.is_file():
-        build_seconds.setdefault(source, 0.0)
-        return ""
-    return _compile(source, out)
+    return build_all([source])[source]
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -48,3 +48,33 @@ def test_bound_picks_the_larger_of_bytes_and_operations():
     ms, by = chip_smoke.lse_bound(1, 32768, 128, torch.bfloat16)
     assert by == "bytes"
     assert abs(ms - ((1 + 32768) * 128 * 2 + 4) / 3.35e12 * 1e3) < 1e-12
+
+
+def test_flash_bound_counts_operations_and_bytes():
+    """Forward 4, dQ 6, dK/dV 8 · BH·S·T·D operations; at the LogBERT shapes
+    the operations bound each kernel."""
+    b, h, s, t, d = chip_smoke.FLASH_SCORING
+    ms, by, ops = chip_smoke.flash_bound("forward", b, h, s, t, d, torch.bfloat16)
+    assert by == "operations" and ops == 4.0 * b * h * s * t * d
+    assert abs(ms - ops / 989e12 * 1e3) < 1e-12
+    b, h, s, t, d = chip_smoke.FLASH_TRAINING
+    for kind, factor in (("dq", 6.0), ("dkv", 8.0)):
+        ms, by, ops = chip_smoke.flash_bound(kind, b, h, s, t, d, torch.bfloat16)
+        assert by == "operations" and ops == factor * b * h * s * t * d
+    # one query against one key: the bytes bound it
+    ms, by, _ = chip_smoke.flash_bound("forward", 1, 1, 1, 1, 64, torch.float32)
+    assert by == "bytes"
+    assert abs(ms - (4 * 64 * 4 + 4) / 3.35e12 * 1e3) < 1e-15
+
+
+def test_logbert_launch_counts_follow_the_fit():
+    """512 training messages in steps of 32 over max(4, ceil(100 / 16)) = 7
+    epochs: 112 steps, 16 calibration chunks, 4 layers."""
+    want = chip_smoke.logbert_expected_launches(device_batches=16)
+    assert want["train_steps"] == 112 and want["calibration_chunks"] == 16
+    assert want["flash_forward"] == (112 + 16 + 16) * 4
+    assert want["flash_dq"] == want["flash_dkv"] == 112 * 4
+    assert want["candidate_lse"] == 16 + 16
+    cfg = chip_smoke.LOGBERT_CONFIG
+    assert (cfg["model"], cfg["attn_impl"], cfg["head_impl"]) == ("logbert", "flash", "pallas")
+    assert (cfg["dim"], cfg["depth"], cfg["heads"], cfg["seq_len"]) == (256, 4, 4, 2048)

@@ -148,3 +148,39 @@ def test_data_buffer_and_modes():
     assert buf.push(3) == [1, 2, 3] and len(buf) == 0
     buf.push(4)
     assert buf.flush() == [4] and len(buf) == 0
+
+
+EXTRA_DOC = {
+    "method_type": "core_detector", "auto_config": False,
+    "events": {1: {"inst": {
+        "owner": "secops", "params": {"t": 1},
+        "variables": [{"pos": 0, "name": "pid", "color": "red", "weights": [1, 2]},
+                      {"pos": 2}],
+        "header_variables": [{"pos": "Time", "unit": "s"}]}}},
+    "global": {"g": {"note": {"k": "v"},
+                     "header_variables": [{"pos": "Host", "params": {}, "rank": 3}]}},
+}
+
+
+@pytest.mark.parametrize("what", ["InstanceConfig", "Variable", "HeaderVariable"])
+def test_undeclared_keys_survive_parse_and_dump(what):
+    """The pydantic models keep keys they do not declare (``extra="allow"``)
+    and dump them back; so do the port's dataclasses."""
+    want = ref_det.CoreDetectorConfig.from_dict(copy.deepcopy(EXTRA_DOC))
+    got = detector.CoreDetectorConfig.from_dict(copy.deepcopy(EXTRA_DOC))
+    assert got.to_dict() == want.to_dict()
+    ref_inst, inst = want.events[1]["inst"], got.events[1]["inst"]
+    if what == "InstanceConfig":
+        pairs = [(inst, ref_inst), (got.global_["g"], want.global_["g"])]
+    elif what == "Variable":
+        pairs = list(zip(inst.variables, ref_inst.variables))
+    else:
+        pairs = [(inst.header_variables[0], ref_inst.header_variables[0]),
+                 (got.global_["g"].header_variables[0],
+                  want.global_["g"].header_variables[0])]
+    assert any(ref.model_extra for _, ref in pairs)
+    for port, ref in pairs:
+        assert port.extra == ref.model_extra
+    # the declared fields are untouched by the extra keys
+    assert inst.variables[0].label == ref_inst.variables[0].label == "pid"
+    assert inst.params == {"t": 1}

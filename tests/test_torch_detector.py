@@ -220,10 +220,93 @@ class TestAsyncFit:
         assert det._fit_thread is None and not det._pending
 
 
+LOGBERT = dict(BASE, model="logbert", depth=1, heads=2, score_topk=4,
+               train_epochs=0, min_train_steps=0)
+# per attention path, the head the test pairs it with (flash + the fused head
+# is the GPU configuration)
+LOGBERT_HEADS = {"einsum": "einsum", "flash": "pallas"}
+LOGBERT_CHUNKS = (64, 64, 10, 64, 50)
+
+
+@pytest.fixture(scope="module", params=["einsum", "flash"])
+def logbert_pair(request):
+    """The JAX and the port LogBERT detector from the same initial weights,
+    fitted without train steps (calibration only, so the weights stay
+    equal), then pinned to the JAX detector's threshold and run over the
+    same detect stream."""
+    attn = request.param
+    cfg = dict(LOGBERT, attn_impl=attn, head_impl=LOGBERT_HEADS[attn])
+    jax_det, port_det = _pair(**cfg)
+    for det in (jax_det, port_det):
+        assert det.process_batch(STREAM[:N_TRAIN]) == []
+    fitted = (jax_det._threshold, port_det._threshold, jax_det._calib_stats,
+              port_det._calib_stats)
+    threshold = jax_det._threshold
+    jax_det.reconfigure(dict(cfg, method_type="jax_scorer", score_threshold=threshold))
+    port_det.reconfigure(dict(cfg, method_type="torch_scorer", device="cpu",
+                              score_threshold=threshold))
+    chunks = (0, *LOGBERT_CHUNKS)
+    outs = [_run(det, stream=STREAM[N_TRAIN:], chunks=chunks) for det in (jax_det, port_det)]
+    return attn, jax_det, port_det, fitted, threshold, outs
+
+
+class TestLogBERTAgainstJaxDetector:
+    def test_calibration_only_thresholds_match(self, logbert_pair):
+        _, _, _, (jax_t, port_t, jax_stats, port_stats), _, _ = logbert_pair
+        assert np.isfinite(port_t)
+        np.testing.assert_allclose(port_t, jax_t, rtol=1e-3)
+        np.testing.assert_allclose(port_stats, jax_stats, rtol=1e-3)
+
+    def test_pinned_threshold_alert_decisions_identical(self, logbert_pair):
+        attn, jax_det, port_det, _, threshold, (jax_out, port_out) = logbert_pair
+        assert port_det._threshold == jax_det._threshold == threshold
+        jax_alerts = _by_log_id(jax_out, RefDetectorSchema)
+        port_alerts = _by_log_id(port_out, DetectorSchema)
+        assert jax_alerts and len(jax_alerts) < sum(LOGBERT_CHUNKS)
+        scores = _ref_scores(jax_det)
+        for log_id in set(jax_alerts) ^ set(port_alerts):
+            assert abs(scores[log_id] - threshold) < 1e-3, log_id
+        for log_id in set(jax_alerts) & set(port_alerts):
+            np.testing.assert_allclose(port_alerts[log_id]["score"],
+                                       jax_alerts[log_id]["score"], rtol=1e-4)
+        # flash has no host copy, so even the 10-row call rides the device
+        assert port_det.path_counts["host"] == (0 if attn == "flash" else 1)
+
+
+@pytest.mark.parametrize("attn,seq_len", [
+    ("flash", 16), ("einsum", 16), ("blockwise", 16), ("auto", 16), ("auto", 2048)])
+def test_host_copy_only_where_the_jax_detector_has_its_host_twin(attn, seq_len):
+    """A logbert whose attention can take the flash kernels (``flash``, or
+    ``auto`` at seq_len >= FLASH_MIN_SEQ) is device-only on both sides."""
+    cfg = dict(LOGBERT, attn_impl=attn, seq_len=seq_len)
+    jax_det = JaxScorerDetector(config=dict(cfg, method_type="jax_scorer"))
+    port = TorchScorerDetector(config=dict(cfg, method_type="torch_scorer", device="cpu"))
+    assert port._host_scoring_possible() == jax_det._host_scoring_possible()
+    assert port._flash_reachable() == (not port._host_scoring_possible())
+    port._ensure_scorer()
+    assert (port._host_scorer is None) == (not jax_det._host_scoring_possible())
+
+
+@pytest.mark.parametrize("attn", ["einsum", "flash"])
+def test_logbert_fit_trains(attn):
+    """A real fit: the masked-LM steps give a finite loss, move the weights,
+    and leave a finite threshold."""
+    det = TorchScorerDetector(name="scorer", config=dict(
+        LOGBERT, method_type="torch_scorer", device="cpu", attn_impl=attn,
+        train_epochs=1, min_train_steps=3))
+    det.setup_io()
+    before = {k: v.clone() for k, v in det._model.state_dict().items()}
+    det._train_buffer = list(det._featurize_raw_batch(STREAM[:N_TRAIN])[0])
+    stats = det.fit()
+    assert np.isfinite(stats["loss"]) and np.isfinite(stats["threshold"])
+    changed = [k for k, v in det._model.state_dict().items() if not torch.equal(v, before[k])]
+    assert "blocks.0.qkv.weight" in changed and "pos_embed" in changed
+
+
 class TestNotYetPorted:
     @pytest.mark.parametrize("field,value,slice_name", [
-        ("model", "gru", "gru/logbert"),
-        ("model", "logbert", "gru/logbert"),
+        ("model", "gru", "the gru slice"),
+        ("attn_impl", "ring", "the multi-GPU slice"),
         ("dtype", "int8w", "int8w"),
         ("mesh_shape", {"data": 1}, "multi-GPU"),
         ("batch_deadline_ms", 5.0, "coalescer"),
@@ -231,9 +314,11 @@ class TestNotYetPorted:
         ("featurize_threads", 2, "native featurize"),
     ])
     def test_raises_naming_the_later_slice(self, field, value, slice_name):
+        # ring attention belongs to the logbert model
+        cfg = dict(BASE, method_type="torch_scorer", device="cpu",
+                   model="logbert" if field == "attn_impl" else BASE["model"])
         with pytest.raises(LibraryError, match=slice_name):
-            TorchScorerDetector(config=dict(BASE, method_type="torch_scorer",
-                                            device="cpu", **{field: value}))
+            TorchScorerDetector(config=dict(cfg, **{field: value}))
 
     @pytest.mark.parametrize("field,value", [
         ("head_impl", "cuda"), ("score_norm", "zscore"), ("dtype", "float8"),
@@ -290,6 +375,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch\n"
         "import detectmateservice_tpu_torch.library.detectors.torch_scorer\n"
         "import detectmateservice_tpu_torch.ops.scorehead\n"
+        "import detectmateservice_tpu_torch.ops.flash\n"
+        "import detectmateservice_tpu_torch.ops.attention\n"
+        "import detectmateservice_tpu_torch.models.logbert\n"
         "import detectmateservice_tpu_torch.ops.cuda_build\n"
         "import detectmateservice_tpu_torch.models.convert\n"
         "import detectmateservice_tpu_torch.utils.device\n"
@@ -303,6 +391,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
            if any(m == f or m.startswith(f + ".") for f in _FORBIDDEN)]
     assert bad == []
     assert "detectmateservice_tpu_torch.library.detectors.torch_scorer" in loaded
+    assert "detectmateservice_tpu_torch.ops.flash" in loaded
 
 
 def test_no_forbidden_import_statement_anywhere_in_the_port():
