@@ -8,18 +8,23 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every CUDA source of the port (``ops/csrc``), one ``nvcc`` each,
    all started together, with the compile seconds and ``ptxas`` registers
-   and spills;
+   and spills of every kernel (``ptxas_summary``), the main path's wgmma
+   variants named apart;
 3. the fused head (kernel 1) against its plain PyTorch version, at the main
    paths' shapes (D = 128 for the MLP detector, D = 256 for LogBERT) and at
    edge shapes (TF32 off, so the plain version is exact fp32);
 4. the fused head's timings: kernel, plain version, one library call that
-   computes the same function, and the card's bound for the same work;
+   computes the same function (over row chunks of 65,536 where its bf16
+   [N, C] product would not fit), and the card's bound for the same work;
 5. the flash kernels (forward, dQ, dK/dV) against their plain versions at
-   the LogBERT scoring and training shapes and at ragged, tiny, fp16 and
-   fully-masked edge shapes;
+   the LogBERT scoring and training shapes and at ragged, tiny, fp16,
+   fully-masked and D = 128 edge shapes, in fp32 (the CUDA-core variants)
+   and in bf16 (the wgmma variants), and with q, k and v as strided views
+   of one qkv tensor as the model passes them;
 6. the flash kernels' timings beside their plain versions,
    ``F.scaled_dot_product_attention`` (forward, and its backward through
-   autograd) as the library yardstick, and the bound;
+   autograd) as the library yardstick, and the bound, with each kernel's
+   variant and share of the bound;
 7. the MLP detector end to end at the full bench width (vocab 32768,
    seq_len 32, dim 128, hidden 256, max_batch 16384, bf16, ``head_impl:
    pallas``): fit on 2048 messages, then 65,536 messages in
@@ -34,7 +39,9 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    weights must give the same alert decisions.
 
 Each detector run resets every kernel's launch count just before and reads
-them just after; the counts must be exactly what the path launches. Then
+them just after; the counts must be exactly what the path launches, and the
+LogBERT path's bf16 flash forward and dK/dV launches must all have taken
+the wgmma variant. Then
 the kernel summary line, and last ``{"ok": true, "device": ...}``. Any
 failed phase raises, so the script exits non-zero and prints no result; so
 does a machine without a CUDA device. Imports nothing of JAX.
@@ -44,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -105,20 +113,29 @@ LSE_CASES = [
 # (N, D) of the fused-head timings; the plain version runs in row chunks
 LSE_TIMED = ((16384, 128), (4096, 128), (256, 128), (65536, 256), (524288, 256))
 LSE_PLAIN_ROWS = 16384
-# the library call's bf16 [N, C] product fits at N <= 65536
-LSE_LIBRARY_MAX_N = 65536
+# the library call's bf16 [N, C] product (4 GiB at 65,536 rows) fits at
+# N <= 65536; beyond, it runs once per row chunk of this size
+LSE_LIBRARY_ROWS = 65536
 
-# (B, H, S, T, D, dtype, mask, backward) of the flash checks: the LogBERT
-# scoring and training shapes with real-row key masks (10-40 valid keys),
-# then ragged, tiny, fp16 maskless and fully masked edge shapes
+# (B, H, S, T, D, dtype, mask, backward, layout) of the flash checks: the
+# LogBERT scoring and training shapes with real-row key masks (10-40 valid
+# keys), then ragged, tiny, fp16 maskless, fully masked and D = 128 edge
+# shapes, fp32 ones (CUDA-core variants) with bf16 twins (wgmma variants),
+# and q, k, v as strided views of one [B, S, 3 H D] tensor ("qkv", as
+# models/logbert.py makes them) beside separate contiguous tensors
 FLASH_CASES = [
-    (256, 4, 2048, 2048, 64, torch.bfloat16, "rows", False),
-    (32, 4, 2048, 2048, 64, torch.bfloat16, "rows", True),
-    (2, 3, 200, 384, 64, torch.float32, "random", True),
-    (2, 2, 100, 60, 32, torch.float32, "random", True),
-    (1, 1, 1, 1, 64, torch.float32, None, True),
-    (2, 2, 64, 64, 128, torch.float16, None, True),
-    (2, 2, 70, 90, 64, torch.float32, "one_row_masked", True),
+    (256, 4, 2048, 2048, 64, torch.bfloat16, "rows", False, "contiguous"),
+    (32, 4, 2048, 2048, 64, torch.bfloat16, "rows", True, "contiguous"),
+    (2, 3, 200, 384, 64, torch.float32, "random", True, "contiguous"),
+    (2, 3, 200, 384, 64, torch.bfloat16, "random", True, "contiguous"),
+    (2, 2, 100, 60, 32, torch.float32, "random", True, "contiguous"),
+    (1, 1, 1, 1, 64, torch.float32, None, True, "contiguous"),
+    (1, 1, 1, 1, 64, torch.bfloat16, None, True, "contiguous"),
+    (2, 2, 64, 64, 128, torch.float16, None, True, "contiguous"),
+    (2, 2, 70, 90, 64, torch.float32, "one_row_masked", True, "contiguous"),
+    (2, 2, 70, 90, 64, torch.bfloat16, "one_row_masked", True, "contiguous"),
+    (3, 2, 300, 300, 128, torch.bfloat16, "rows", True, "contiguous"),
+    (4, 4, 520, 520, 64, torch.bfloat16, "rows", True, "qkv"),
 ]
 FLASH_SCORING = (256, 4, 2048, 2048, 64)
 FLASH_TRAINING = (32, 4, 2048, 2048, 64)
@@ -158,6 +175,14 @@ def reset_launches() -> None:
     for fn in (scorehead.candidate_lse, flash.flash_forward, flash.flash_dq,
                flash.flash_dkv):
         fn.launches = 0
+    for fn in (flash.flash_forward, flash.flash_dq, flash.flash_dkv):
+        fn.variants.clear()
+
+
+def read_variants() -> dict:
+    """Each flash wrapper's launches by kernel variant."""
+    return {fn.__name__: dict(fn.variants)
+            for fn in (flash.flash_forward, flash.flash_dq, flash.flash_dkv)}
 
 
 def read_launches() -> dict:
@@ -188,18 +213,52 @@ def phase_card() -> tuple:
 
 
 # -- phase 2 -----------------------------------------------------------------
-def phase_build() -> None:
+_KERNEL_NAME = re.compile(
+    r"([a-z_]+_kernel)I(?:Li(\d+)E)?(13__nv_bfloat16|6__half|f)E")
+_TYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+# the wgmma kernels the LogBERT path runs (bf16, D = 64), by flash kind
+MAIN_PATH_WGMMA = {"forward": "flash_fwd_wgmma_kernel<64, bf16>",
+                   "dkv": "flash_dkv_wgmma_kernel<64, bf16>"}
+
+
+def ptxas_summary(report: str) -> dict:
+    """Registers, stack and spill bytes of each kernel in an ``nvcc -Xptxas
+    -v`` report, keyed ``name<D, type>`` (``name<type>`` without a D)."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = _KERNEL_NAME.search(found.group(1))
+            entry = (found.group(1) if name is None else
+                     f"{name.group(1)}<{name.group(2) + ', ' if name.group(2) else ''}"
+                     f"{_TYPE_NAMES[name.group(3)]}>")
+            out[entry] = {}
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame and entry is not None:
+            out[entry].update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                              spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and entry is not None:
+            out[entry]["registers"] = int(used.group(1))
+    return out
+
+
+def phase_build() -> dict:
     t0 = time.perf_counter()
     reports = cuda_build.build_all([scorehead.SOURCE, flash.SOURCE])
     wall = time.perf_counter() - t0
     scorehead.build_kernel()  # loads and types the libraries
     flash.build_kernel()
-    ptxas = {src: [ln.strip() for ln in rep.splitlines()
-                   if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-             for src, rep in reports.items()}
+    ptxas = {src: ptxas_summary(rep) for src, rep in reports.items()}
+    main_path = {name: ptxas.get(flash.SOURCE, {}).get(name)
+                 for name in MAIN_PATH_WGMMA.values()}
     emit("build", seconds=wall, compile_seconds=cuda_build.build_seconds, ptxas=ptxas,
+         main_path_wgmma=main_path,
          lse_max_dim=scorehead._library().dm_candidate_lse_max_dim(),
          flash_max_dim=flash._library().dm_flash_max_dim())
+    return main_path
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -213,11 +272,24 @@ def _lse_inputs(n, c, d, dtype, gen):
     return h.to(dtype), e.to(dtype)
 
 
+def row_chunks(n: int, size: int) -> list:
+    """Slices of [0, n) of at most ``size`` rows each, in order."""
+    return [slice(i, min(n, i + size)) for i in range(0, n, size)]
+
+
 def lse_plain(h: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """The plain version over row chunks, so the fp32 [rows, C] logits stay
     at 2 GiB at C = 32768."""
-    return torch.cat([scorehead.candidate_lse_reference(h[i:i + LSE_PLAIN_ROWS], e)
-                      for i in range(0, h.shape[0], LSE_PLAIN_ROWS)])
+    return torch.cat([scorehead.candidate_lse_reference(h[sl], e)
+                      for sl in row_chunks(h.shape[0], LSE_PLAIN_ROWS)])
+
+
+def lse_library(h: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The library yardstick: one ``torch.logsumexp(torch.matmul(h,
+    e.T).float(), -1)`` per chunk of at most 65,536 rows (one call up to
+    there)."""
+    return torch.cat([torch.logsumexp(torch.matmul(h[sl], e.T).float(), -1)
+                      for sl in row_chunks(h.shape[0], LSE_LIBRARY_ROWS)])
 
 
 def phase_kernel_checks() -> float:
@@ -286,21 +358,20 @@ def phase_timings() -> dict:
     for n, d in LSE_TIMED:
         c, dtype = 32768, torch.bfloat16
         h, e = _lse_inputs(n, c, d, dtype, gen)
-        big = n > LSE_LIBRARY_MAX_N
-        reps = 5 if big else 25
+        chunks = len(row_chunks(n, LSE_LIBRARY_ROWS))
+        reps = 5 if chunks > 1 else 25
         kernel_ms = time_ms(lambda: scorehead.candidate_lse(h, e), reps=reps)
         plain_ms = time_ms(lambda: lse_plain(h, e), reps=reps, warmup=1)
-        library_ms = None if big else time_ms(
-            lambda: torch.logsumexp(torch.matmul(h, e.T).float(), -1))
+        library_ms = time_ms(lambda: lse_library(h, e), reps=reps, warmup=1)
         bound_ms, bound_by = lse_bound(n, c, d, dtype)
         rows[(n, d)] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
         emit("timing", kernel="candidate_lse", shape=[n, c, d], dtype="bfloat16",
              ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, reps=reps,
-             library_call=("not timed: the bf16 [N, C] product alone is "
-                           f"{n * c * 2 / 2**30:.0f} GiB" if big else
-                           "torch.logsumexp(torch.matmul(h, e.T).float(), -1): "
-                           "bf16 matmul with a bf16 [N, C] result, then fp32"),
+             library_call=("torch.logsumexp(torch.matmul(h, e.T).float(), -1): "
+                           "bf16 matmul with a bf16 [N, C] result, then fp32"
+                           + (f"; {chunks} chunked calls of {LSE_LIBRARY_ROWS} rows "
+                              "in one timed call" if chunks > 1 else "")),
              plain_call="candidate_lse_reference over 16384-row chunks: fp32 "
                         "matmul (TF32 off), logsumexp",
              bound_ms=bound_ms, bound_by=bound_by, flops=2.0 * n * c * d,
@@ -309,10 +380,17 @@ def phase_timings() -> dict:
 
 
 # -- phase 5 -----------------------------------------------------------------
-def _flash_inputs(b, h, s, t, d, dtype, mask_kind, gen):
-    q = torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
+def _flash_inputs(b, h, s, t, d, dtype, mask_kind, gen, layout="contiguous"):
+    if layout == "qkv":
+        # one [B, S, 3 H D] tensor cut into q, k, v heads, as the model does
+        assert s == t
+        qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen).to(dtype)
+        q, k, v = (x.reshape(b, s, h, d).transpose(1, 2)
+                   for x in qkv.split(h * d, dim=-1))
+    else:
+        q = torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
     g = torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
     if mask_kind is None:
         mask = None
@@ -351,48 +429,58 @@ _FLASH_RESULT_KERNEL = {"out": "flash_forward", "dq": "flash_dq", "dk": "flash_d
                         "dv": "flash_dkv"}
 
 
+def flash_case_results(case: tuple, gen: torch.Generator) -> dict:
+    """Every result of one ``FLASH_CASES`` entry held against its plain
+    version: name -> (ok, max_abs_err, tolerance)."""
+    b, h, s, t, d, dtype, mask_kind, backward, layout = case
+    q, k, v, g, mask = _flash_inputs(b, h, s, t, d, dtype, mask_kind, gen, layout)
+    out, lse = flash.flash_forward(q, k, v, mask, want_lse=True)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash.flash_forward_reference(q, k, v, mask)
+    results = {"out": _close(out, want_out, dtype, grad=False)}
+    lse_err = (lse - want_lse).abs().max().item()
+    results["lse"] = (bool(torch.isfinite(lse).all())
+                      and bool(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-3)),
+                      lse_err, "rtol 1e-5, atol 1e-3")
+    scoring_out, _ = flash.flash_forward(q, k, v, mask, want_lse=False)
+    results["out_without_lse"] = (bool(torch.equal(scoring_out, out)), 0.0, "equal")
+    if backward:
+        delta = flash.flash_delta(g, out)
+        dq = flash.flash_dq(q, k, v, mask, g, lse, delta)
+        dk, dv = flash.flash_dkv(q, k, v, mask, g, lse, delta)
+        torch.cuda.synchronize()
+        want_dq = flash.flash_dq_reference(q, k, v, mask, g, lse, delta)
+        want_dk, want_dv = flash.flash_dkv_reference(q, k, v, mask, g, lse, delta)
+        for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                                ("dv", dv, want_dv)):
+            results[name] = _close(got, want, dtype, grad=True)
+        if dtype == torch.float32:
+            # an independent formulation too: autograd through the einsum
+            # reference, the gradients of sum(out * g)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            ref_out = flash.reference_attention(*leaves, mask)
+            for name, got, want in zip(
+                    ("dq_autograd", "dk_autograd", "dv_autograd"), (dq, dk, dv),
+                    torch.autograd.grad(ref_out, leaves, g)):
+                results[name] = _close(got, want, dtype, grad=True)
+        # dV is never all zero (with one key, dQ and dK are)
+        grad_max = max(x.abs().max().item() for x in (dq, dk, dv))
+        results["grad_max_abs"] = (dv.abs().max().item() > 0, grad_max, "dV nonzero")
+    return results
+
+
 def phase_flash_checks() -> dict:
     """Each flash kernel's largest |kernel - plain| over the cases."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"flash_forward": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    for b, h, s, t, d, dtype, mask_kind, backward in FLASH_CASES:
-        q, k, v, g, mask = _flash_inputs(b, h, s, t, d, dtype, mask_kind, gen)
-        out, lse = flash.flash_forward(q, k, v, mask, want_lse=True)
-        torch.cuda.synchronize()
-        want_out, want_lse = flash.flash_forward_reference(q, k, v, mask)
-        results = {"out": _close(out, want_out, dtype, grad=False)}
-        lse_err = (lse - want_lse).abs().max().item()
-        results["lse"] = (bool(torch.isfinite(lse).all())
-                          and bool(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-3)),
-                          lse_err, "rtol 1e-5, atol 1e-3")
-        scoring_out, _ = flash.flash_forward(q, k, v, mask, want_lse=False)
-        results["out_without_lse"] = (bool(torch.equal(scoring_out, out)), 0.0, "equal")
-        if backward:
-            delta = flash.flash_delta(g, out)
-            dq = flash.flash_dq(q, k, v, mask, g, lse, delta)
-            dk, dv = flash.flash_dkv(q, k, v, mask, g, lse, delta)
-            torch.cuda.synchronize()
-            want_dq = flash.flash_dq_reference(q, k, v, mask, g, lse, delta)
-            want_dk, want_dv = flash.flash_dkv_reference(q, k, v, mask, g, lse, delta)
-            for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
-                                    ("dv", dv, want_dv)):
-                results[name] = _close(got, want, dtype, grad=True)
-            if dtype == torch.float32:
-                # an independent formulation too: autograd through the
-                # einsum reference, the gradients of sum(out * g)
-                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-                ref_out = flash.reference_attention(*leaves, mask)
-                for name, got, want in zip(
-                        ("dq_autograd", "dk_autograd", "dv_autograd"), (dq, dk, dv),
-                        torch.autograd.grad(ref_out, leaves, g)):
-                    results[name] = _close(got, want, dtype, grad=True)
-            # dV is never all zero (with one key, dQ and dK are)
-            grad_max = max(x.abs().max().item() for x in (dq, dk, dv))
-            results["grad_max_abs"] = (dv.abs().max().item() > 0, grad_max,
-                                       "dV nonzero")
+    for case in FLASH_CASES:
+        b, h, s, t, d, dtype, mask_kind, backward, layout = case
+        results = flash_case_results(case, gen)
         ok = all(r[0] for r in results.values())
         emit("flash_check", shape=[b, h, s, t, d], dtype=_dtype_name(dtype),
-             mask=mask_kind, backward=backward, ok=ok,
+             mask=mask_kind, backward=backward, layout=layout, ok=ok,
+             variants={kind: flash.variant(kind, dtype, d)
+                       for kind in ("forward", "dq", "dkv")},
              **{name: {"max_abs_err": r[1], "tol": r[2], "ok": r[0]}
                 for name, r in results.items()})
         if not ok:
@@ -402,7 +490,7 @@ def phase_flash_checks() -> dict:
             if name in _FLASH_RESULT_KERNEL:
                 kernel = _FLASH_RESULT_KERNEL[name]
                 worst[kernel] = max(worst[kernel], r[1])
-        del q, k, v, g, out, lse, want_out, want_lse
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -463,9 +551,13 @@ def phase_flash_timings() -> dict:
                                                   with_lse=want_lse)
             rows[(kind, label)] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                        library_ms=library_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by, shape=list(shape))
+                                       bound_by=bound_by, shape=list(shape),
+                                       variant=flash.variant(kind, dtype, d),
+                                       bound_share=bound_ms / kernel_ms)
             emit("flash_timing", kernel=kind, label=label, shape=list(shape),
                  dtype="bfloat16", with_lse=want_lse if kind == "forward" else None,
+                 variant=rows[(kind, label)]["variant"],
+                 bound_share=rows[(kind, label)]["bound_share"],
                  ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                  library_call=("F.scaled_dot_product_attention with the additive "
                                "[B, T] bias" if kind == "forward" else
@@ -656,6 +748,15 @@ def phase_logbert_detector() -> dict:
         if counts[name] != expected[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the LogBERT "
                                  f"path, expected {expected[name]} ({expected})")
+    # bf16 at head_dim 64: every forward and dK/dV launch took the wgmma
+    # variant, every dQ launch the CUDA-core one
+    variants = read_variants()
+    want_variants = {"flash_forward": {"wgmma_tma_d64": expected["flash_forward"]},
+                     "flash_dq": {"cuda_core_d64": expected["flash_dq"]},
+                     "flash_dkv": {"wgmma_tma_d64": expected["flash_dkv"]}}
+    if variants != want_variants:
+        raise AssertionError(f"the LogBERT path took the flash variants {variants}, "
+                             f"expected {want_variants}")
     threshold = det._threshold
     if not np.isfinite(threshold):
         raise AssertionError(f"threshold {threshold} is not finite")
@@ -705,7 +806,7 @@ def phase_logbert_detector() -> dict:
         call_size=LOGBERT_CALL, threshold=threshold, alerts=len(by_id),
         anomalies=len(anomalies), recall=recall,
         precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
-        launch_counts=counts, expected_launches=expected,
+        launch_counts=counts, expected_launches=expected, variants=variants,
         device_batches=device_batches, plain_alerts=len(plain_by_id),
         decision_flips=len(flips), flip_distances=near,
         small_fp32_max_abs_err=small_err, peak_mem_gib=peak_gib)
@@ -722,7 +823,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     name, _smi = phase_card()
-    phase_build()
+    main_path_ptxas = phase_build()
     lse_err = phase_kernel_checks()
     lse_times = phase_timings()
     flash_err = phase_flash_checks()
@@ -765,8 +866,12 @@ def main() -> int:
             "launches": logbert["launch_counts"][fn_name],
             "max_abs_err": flash_err[fn_name],
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "shape")},
+                                         "library_ms", "shape", "variant",
+                                         "bound_share")},
+            "launches_by_variant": logbert["variants"][fn_name],
         }
+        if kind in MAIN_PATH_WGMMA:
+            entry["ptxas"] = main_path_ptxas[MAIN_PATH_WGMMA[kind]]
         if kind == "forward":
             entry["training_shape"] = flash_times[("forward", "training")]
         kernels.append(entry)

@@ -20,7 +20,11 @@ On CPU tensors each wrapper computes its plain version
 (``flash_forward_reference``, ``flash_dq_reference``,
 ``flash_dkv_reference``: the same math in torch, chunked over batch·head so
 the fp32 scores stay bounded); on CUDA tensors it launches its kernel or
-raises. Each counts its kernel launches in ``.launches``.
+raises. Each counts its kernel launches in ``.launches``, and by kernel
+variant in ``.variants``: bf16 and fp16 forward and dK/dV take the wgmma
+kernels fed by TMA (``variant``), which want every operand's base address
+and batch, head and sequence strides at multiples of 16 bytes and raise
+otherwise; fp32 and dQ take the CUDA-core kernels.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a backward is
 pending (grad mode on and an input requires grad): its forward saves lse and
@@ -33,6 +37,7 @@ reference formulation's value), never NaN.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Iterator, Optional, Tuple
 
@@ -43,6 +48,9 @@ from . import cuda_build
 SOURCE = "flash.cu"
 NEG_BIG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_KIND_CODES = {"forward": 0, "dq": 1, "dkv": 2}
+# the alignment TMA wants of a 16-bit operand's base and strides
+_TMA_ALIGN = 16
 # fp32 score elements one chunk of a plain version may hold (1 GiB)
 _CHUNK_ELEMENTS = 1 << 28
 
@@ -178,6 +186,8 @@ def _library() -> ctypes.CDLL:
                                      ptr, *dims]
         for fn in (lib.dm_flash_forward, lib.dm_flash_dq, lib.dm_flash_dkv):
             fn.restype = ctypes.c_int
+        lib.dm_flash_variant.argtypes = [i32, i32, i32]
+        lib.dm_flash_variant.restype = ctypes.c_char_p
         lib.dm_flash_max_dim.argtypes = []
         lib.dm_flash_max_dim.restype = ctypes.c_int
         lib.dm_flash_error_string.argtypes = [ctypes.c_int]
@@ -256,6 +266,41 @@ def _check_dim(lib, d: int, name: str) -> None:
         raise ValueError(f"{name}: D={d} exceeds the kernel's {lib.dm_flash_max_dim()}")
 
 
+def variant(kind: str, dtype: torch.dtype, d: int) -> str:
+    """The kernel variant a launch of ``kind`` ("forward", "dq" or "dkv")
+    takes for operands of ``dtype`` with head dimension ``d``, as
+    ``csrc/flash.cu`` names it (``wgmma_tma_d64``, ``cuda_core_d128``, …)."""
+    return _library().dm_flash_variant(_KIND_CODES[kind], _DTYPE_CODES[dtype],
+                                       d).decode()
+
+
+def check_tma_alignment(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless each operand's base address and its batch, head and
+    sequence strides (of dimensions longer than 1) are multiples of 16
+    bytes, as the wgmma kernels' TMA loads need. No copy is made: the
+    caller's views either fit or are refused."""
+    for t in tensors:
+        size = t.element_size()
+        bad = [f"stride {s * size} B along dim {i}"
+               for i, (n, s) in enumerate(zip(t.shape[:3], t.stride()[:3]))
+               if n > 1 and (s * size) % _TMA_ALIGN]
+        if t.data_ptr() % _TMA_ALIGN:
+            bad.insert(0, f"base address {t.data_ptr():#x}")
+        if bad:
+            raise ValueError(f"{name}: the {t.dtype} operand {tuple(t.shape)} is not "
+                             f"{_TMA_ALIGN}-byte aligned for TMA ({', '.join(bad)})")
+
+
+def _variant_for(lib, kind: str, dtype: torch.dtype, d: int, name: str,
+                 *tensors: torch.Tensor) -> str:
+    """The variant this launch takes, with its operands checked for it."""
+    _check_dim(lib, d, name)
+    taken = variant(kind, dtype, d)
+    if taken.startswith("wgmma"):
+        check_tma_alignment(name, *tensors)
+    return taken
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_mask: Optional[torch.Tensor] = None, want_lse: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -269,7 +314,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, d = qc.shape
     t = kc.shape[2]
     lib = _library()
-    _check_dim(lib, d, "flash_forward")
+    taken = _variant_for(lib, "forward", dtype, d, "flash_forward", qc, kc, vc)
     bias = _bias_arg(key_mask, qc.device)
     out = torch.empty((b, h, s, d), dtype=dtype, device=qc.device)
     lse = (torch.empty((b * h, s), dtype=torch.float32, device=qc.device)
@@ -283,6 +328,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, s, t, d, d ** -0.5, _DTYPE_CODES[dtype], stream)
     _raise_on(rc, lib, "flash_forward", qc, t, dtype)
     flash_forward.launches += 1
+    flash_forward.variants[taken] += 1
     return out.to(q.dtype), lse
 
 
@@ -308,7 +354,7 @@ def flash_dq(q, k, v, key_mask, do, lse, delta) -> torch.Tensor:
     b, h, s, d = qc.shape
     t = kc.shape[2]
     lib = _library()
-    _check_dim(lib, d, "flash_dq")
+    taken = _variant_for(lib, "dq", dtype, d, "flash_dq", qc, kc, vc, doc)
     bias = _bias_arg(key_mask, qc.device)
     dq = torch.empty((b, h, s, d), dtype=dtype, device=qc.device)
     with torch.cuda.device(qc.device):
@@ -320,6 +366,7 @@ def flash_dq(q, k, v, key_mask, do, lse, delta) -> torch.Tensor:
             b, h, s, t, d, d ** -0.5, _DTYPE_CODES[dtype], stream)
     _raise_on(rc, lib, "flash_dq", qc, t, dtype)
     flash_dq.launches += 1
+    flash_dq.variants[taken] += 1
     return dq.to(q.dtype)
 
 
@@ -334,7 +381,7 @@ def flash_dkv(q, k, v, key_mask, do, lse, delta) -> Tuple[torch.Tensor, torch.Te
     b, h, s, d = qc.shape
     t = kc.shape[2]
     lib = _library()
-    _check_dim(lib, d, "flash_dkv")
+    taken = _variant_for(lib, "dkv", dtype, d, "flash_dkv", qc, kc, vc, doc)
     bias = _bias_arg(key_mask, qc.device)
     dk = torch.empty((b, h, t, d), dtype=dtype, device=qc.device)
     dv = torch.empty((b, h, t, d), dtype=dtype, device=qc.device)
@@ -347,12 +394,17 @@ def flash_dkv(q, k, v, key_mask, do, lse, delta) -> Tuple[torch.Tensor, torch.Te
             b, h, s, t, d, d ** -0.5, _DTYPE_CODES[dtype], stream)
     _raise_on(rc, lib, "flash_dkv", qc, t, dtype)
     flash_dkv.launches += 1
+    flash_dkv.variants[taken] += 1
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 flash_forward.launches = 0  # type: ignore[attr-defined]
 flash_dq.launches = 0  # type: ignore[attr-defined]
 flash_dkv.launches = 0  # type: ignore[attr-defined]
+# launches by kernel variant (``variant``), counted beside ``.launches``
+flash_forward.variants = collections.Counter()  # type: ignore[attr-defined]
+flash_dq.variants = collections.Counter()  # type: ignore[attr-defined]
+flash_dkv.variants = collections.Counter()  # type: ignore[attr-defined]
 
 
 def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

@@ -78,3 +78,80 @@ def test_logbert_launch_counts_follow_the_fit():
     cfg = chip_smoke.LOGBERT_CONFIG
     assert (cfg["model"], cfg["attn_impl"], cfg["head_impl"]) == ("logbert", "flash", "pallas")
     assert (cfg["dim"], cfg["depth"], cfg["heads"], cfg["seq_len"]) == (256, 4, 4, 2048)
+
+
+def _case(case):
+    return dict(zip(("b", "h", "s", "t", "d", "dtype", "mask", "backward", "layout"),
+                    case))
+
+
+def test_flash_cases_give_the_bf16_wgmma_variants_every_edge():
+    """bf16 twins of the ragged, tiny and fully masked fp32 edge cases, a
+    bf16 D = 128 case with real-row masks and one case of strided q, k, v
+    views of one qkv tensor, all with a backward."""
+    cases = [_case(c) for c in chip_smoke.FLASH_CASES]
+    bf16 = [c for c in cases if c["dtype"] == torch.bfloat16 and c["backward"]]
+    fp32 = [c for c in cases if c["dtype"] == torch.float32]
+    for edge in fp32:
+        if edge["d"] == 64:  # the fp32 edges at the main path's head dim
+            twin = dict(edge, dtype=torch.bfloat16)
+            assert twin in bf16, f"no bf16 twin of {edge}"
+    assert any(c["s"] % 128 and c["t"] % 128 for c in bf16)          # ragged
+    assert any(c["mask"] == "one_row_masked" for c in bf16)           # fully masked row
+    assert any(c["s"] == c["t"] == 1 for c in bf16)                   # 1 x 1
+    assert any(c["d"] == 128 and c["mask"] == "rows" for c in bf16)   # D = 128
+    strided = [c for c in bf16 if c["layout"] == "qkv"]
+    assert strided and all(c["s"] == c["t"] for c in strided)
+    assert {c["layout"] for c in cases} == {"contiguous", "qkv"}
+
+
+def test_library_yardstick_covers_every_row_in_chunks():
+    """The kernel-1 library call runs over row chunks of 65,536 where its
+    bf16 [N, C] product would not fit: 8 chunks at N = 524,288."""
+    n = 524288
+    chunks = chip_smoke.row_chunks(n, chip_smoke.LSE_LIBRARY_ROWS)
+    assert len(chunks) == 8
+    assert [sl.start for sl in chunks] == list(range(0, n, 65536))
+    assert chunks[-1].stop == n
+    covered = torch.zeros(n, dtype=torch.int32)
+    for sl in chunks:
+        covered[sl] += 1
+    assert bool((covered == 1).all())
+    assert chip_smoke.row_chunks(65536, chip_smoke.LSE_LIBRARY_ROWS) == [slice(0, 65536)]
+    assert chip_smoke.row_chunks(100, 16384) == [slice(0, 100)]
+
+
+def test_library_yardstick_equals_one_call_where_one_fits():
+    h = torch.randn(300, 16)
+    e = torch.randn(40, 16)
+    one = torch.logsumexp(torch.matmul(h, e.T).float(), -1)
+    torch.testing.assert_close(chip_smoke.lse_library(h, e), one)
+
+
+_PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__31bccdf4_8_flash_cu_d04ea39622flash_fwd_wgmma_kernelILi64E13__nv_bfloat16EEvNS_6TcArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__31bccdf4_8_flash_cu_d04ea39622flash_fwd_wgmma_kernelILi64E13__nv_bfloat16EEvNS_6TcArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__31bccdf4_8_flash_cu_d04ea39615flash_dq_kernelILi128EfEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__31bccdf4_8_flash_cu_d04ea39615flash_dq_kernelILi128EfEEvNS_6ParamsE
+    24 bytes stack frame, 24 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b1a7c10f_12_scorehead_cu_b7acb64510lse_kernelI6__halfEEvPKT_S4_Pfiiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+"""
+
+
+def test_ptxas_summary_reads_registers_and_spills_per_kernel():
+    got = chip_smoke.ptxas_summary(_PTXAS)
+    assert got == {
+        "flash_fwd_wgmma_kernel<64, bf16>": {"stack": 0, "spill_stores": 0,
+                                             "spill_loads": 0, "registers": 168},
+        "flash_dq_kernel<128, fp32>": {"stack": 24, "spill_stores": 24,
+                                       "spill_loads": 40, "registers": 255},
+        "lse_kernel<fp16>": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                             "registers": 64},
+    }
+    assert chip_smoke.MAIN_PATH_WGMMA == {"forward": "flash_fwd_wgmma_kernel<64, bf16>",
+                                          "dkv": "flash_dkv_wgmma_kernel<64, bf16>"}
