@@ -8,11 +8,14 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every CUDA source of the port (``ops/csrc``), one ``nvcc`` each,
    all started together, with the compile seconds and ``ptxas`` registers
-   and spills of every kernel (``ptxas_summary``), the main path's wgmma
-   variants named apart;
+   and spills of every kernel (``ptxas_summary``), the main paths'
+   tensor-core kernels named apart (none of them may spill: checked at the
+   end);
 3. the fused head (kernel 1) against its plain PyTorch version, at the main
    paths' shapes (D = 128 for the MLP detector, D = 256 for LogBERT) and at
-   edge shapes (TF32 off, so the plain version is exact fp32);
+   edge shapes, fp32 ones (the CUDA-core variant) with bf16 twins (the
+   tensor-core variants, split over C or not), each with its variant and
+   split count (TF32 off, so the plain version is exact fp32);
 4. the fused head's timings: kernel, plain version, one library call that
    computes the same function (over row chunks of 65,536 where its bf16
    [N, C] product would not fit), and the card's bound for the same work;
@@ -39,9 +42,9 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    weights must give the same alert decisions.
 
 Each detector run resets every kernel's launch count just before and reads
-them just after; the counts must be exactly what the path launches, and the
-LogBERT path's bf16 flash forward and dK/dV launches must all have taken
-the wgmma variant. Then
+them just after; the counts must be exactly what the path launches, and
+every bf16 flash and fused-head launch on both paths must have taken its
+tensor-core (wgmma) variant. Then
 the kernel summary line, and last ``{"ok": true, "device": ...}``. Any
 failed phase raises, so the script exits non-zero and prints no result; so
 does a machine without a CUDA device. Imports nothing of JAX.
@@ -105,13 +108,28 @@ LSE_CASES = [
     (1, 32768, 128, torch.bfloat16),
     (524288, 32768, 256, torch.bfloat16),
     (65536, 32768, 256, torch.bfloat16),
+    (1, 32768, 256, torch.bfloat16),
     (1000, 2048, 128, torch.float32),
     (100, 613, 16, torch.float32),
     (16, 16, 32, torch.float32),   # the extreme values of test_scorehead.py
     (37, 64, 256, torch.float16),
+    (32, 1031, 256, torch.float16),
+    (1, 1031, 256, torch.float16),
+    # bf16 twins for the tensor-core variants: ragged C (not a whole number
+    # of 128-column stages; 1031 splits in two at N = 100) at every D the
+    # main paths and the plan take, D = 16, and the extreme values
+    (100, 613, 64, torch.bfloat16),
+    (100, 1031, 64, torch.bfloat16),
+    (100, 613, 128, torch.bfloat16),
+    (100, 1031, 128, torch.bfloat16),
+    (100, 613, 256, torch.bfloat16),
+    (100, 1031, 256, torch.bfloat16),
+    (100, 613, 16, torch.bfloat16),
+    (16, 16, 32, torch.bfloat16),
 ]
 # (N, D) of the fused-head timings; the plain version runs in row chunks
-LSE_TIMED = ((16384, 128), (4096, 128), (256, 128), (65536, 256), (524288, 256))
+LSE_TIMED = ((16384, 128), (4096, 128), (256, 128), (32, 128), (65536, 256),
+             (524288, 256))
 LSE_PLAIN_ROWS = 16384
 # the library call's bf16 [N, C] product (4 GiB at 65,536 rows) fits at
 # N <= 65536; beyond, it runs once per row chunk of this size
@@ -171,18 +189,19 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+KERNEL_WRAPPERS = (scorehead.candidate_lse, flash.flash_forward, flash.flash_dq,
+                   flash.flash_dkv)
+
+
 def reset_launches() -> None:
-    for fn in (scorehead.candidate_lse, flash.flash_forward, flash.flash_dq,
-               flash.flash_dkv):
+    for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-    for fn in (flash.flash_forward, flash.flash_dq, flash.flash_dkv):
         fn.variants.clear()
 
 
 def read_variants() -> dict:
-    """Each flash wrapper's launches by kernel variant."""
-    return {fn.__name__: dict(fn.variants)
-            for fn in (flash.flash_forward, flash.flash_dq, flash.flash_dkv)}
+    """Each wrapper's launches by kernel variant."""
+    return {fn.__name__: dict(fn.variants) for fn in KERNEL_WRAPPERS}
 
 
 def read_launches() -> dict:
@@ -215,10 +234,19 @@ def phase_card() -> tuple:
 # -- phase 2 -----------------------------------------------------------------
 _KERNEL_NAME = re.compile(
     r"([a-z_]+_kernel)I(?:Li(\d+)E)?(13__nv_bfloat16|6__half|f)E")
+_PLAIN_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)E")
 _TYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
-# the wgmma kernels the LogBERT path runs (bf16, D = 64), by flash kind
+# the tensor-core kernels the main paths run, all bf16: the flash kernels of
+# the LogBERT path (D = 64), the fused head at the MLP path's D = 128 and
+# LogBERT's D = 256, and the merge of a split head launch
 MAIN_PATH_WGMMA = {"forward": "flash_fwd_wgmma_kernel<64, bf16>",
-                   "dkv": "flash_dkv_wgmma_kernel<64, bf16>"}
+                   "dq": "flash_dq_wgmma_kernel<64, bf16>",
+                   "dkv": "flash_dkv_wgmma_kernel<64, bf16>",
+                   "lse_d128": "lse_wgmma_kernel<128, bf16>",
+                   "lse_d256": "lse_wgmma_kernel<256, bf16>",
+                   "lse_combine": "lse_combine_kernel"}
+# kernels whose ptxas report must show no spill
+NO_SPILL = (*MAIN_PATH_WGMMA.values(), "flash_dq_wgmma_kernel<128, bf16>")
 
 
 def ptxas_summary(report: str) -> dict:
@@ -229,9 +257,13 @@ def ptxas_summary(report: str) -> dict:
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
             name = _KERNEL_NAME.search(found.group(1))
-            entry = (found.group(1) if name is None else
-                     f"{name.group(1)}<{name.group(2) + ', ' if name.group(2) else ''}"
-                     f"{_TYPE_NAMES[name.group(3)]}>")
+            plain = _PLAIN_KERNEL_NAME.search(found.group(1))
+            if name is not None:
+                entry = (f"{name.group(1)}<"
+                         f"{name.group(2) + ', ' if name.group(2) else ''}"
+                         f"{_TYPE_NAMES[name.group(3)]}>")
+            else:
+                entry = found.group(1) if plain is None else plain.group(1)
             out[entry] = {}
             continue
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -252,8 +284,8 @@ def phase_build() -> dict:
     scorehead.build_kernel()  # loads and types the libraries
     flash.build_kernel()
     ptxas = {src: ptxas_summary(rep) for src, rep in reports.items()}
-    main_path = {name: ptxas.get(flash.SOURCE, {}).get(name)
-                 for name in MAIN_PATH_WGMMA.values()}
+    kernels = {name: row for rows in ptxas.values() for name, row in rows.items()}
+    main_path = {name: kernels.get(name) for name in NO_SPILL}
     emit("build", seconds=wall, compile_seconds=cuda_build.build_seconds, ptxas=ptxas,
          main_path_wgmma=main_path,
          lse_max_dim=scorehead._library().dm_candidate_lse_max_dim(),
@@ -310,9 +342,12 @@ def phase_kernel_checks() -> float:
             # exact in fp32, only the order of summation differs
             tol = "atol 2e-3"
             ok = finite and err <= 2e-3
+        taken = scorehead.variant(n, c, d, dtype)
         emit("kernel_check", kernel="candidate_lse", shape=[n, c, d],
-             dtype=_dtype_name(dtype), max_abs_err=err, tol=tol,
-             finite=finite, ok=bool(ok))
+             dtype=_dtype_name(dtype), variant=taken,
+             splits=scorehead._library().dm_candidate_lse_splits(
+                 n, c, d, scorehead._DTYPE_CODES[dtype]),
+             max_abs_err=err, tol=tol, finite=finite, ok=bool(ok))
         if not ok:
             raise AssertionError(f"candidate_lse disagrees at {(n, c, d, dtype)}: {err}")
         worst = max(worst, err)
@@ -364,10 +399,12 @@ def phase_timings() -> dict:
         plain_ms = time_ms(lambda: lse_plain(h, e), reps=reps, warmup=1)
         library_ms = time_ms(lambda: lse_library(h, e), reps=reps, warmup=1)
         bound_ms, bound_by = lse_bound(n, c, d, dtype)
+        taken = scorehead.variant(n, c, d, dtype)
         rows[(n, d)] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+                            bound_ms=bound_ms, bound_by=bound_by, variant=taken,
+                            bound_share=bound_ms / kernel_ms)
         emit("timing", kernel="candidate_lse", shape=[n, c, d], dtype="bfloat16",
-             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, reps=reps,
+             variant=taken, bound_share=bound_ms / kernel_ms, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, reps=reps,
              library_call=("torch.logsumexp(torch.matmul(h, e.T).float(), -1): "
                            "bf16 matmul with a bf16 [N, C] result, then fp32"
                            + (f"; {chunks} chunked calls of {LSE_LIBRARY_ROWS} rows "
@@ -476,16 +513,19 @@ def phase_flash_checks() -> dict:
     for case in FLASH_CASES:
         b, h, s, t, d, dtype, mask_kind, backward, layout = case
         results = flash_case_results(case, gen)
-        ok = all(r[0] for r in results.values())
+        # every 16-bit kind runs its wgmma kernel, every fp32 one CUDA cores
+        variants = {kind: flash.variant(kind, dtype, d) for kind in ("forward", "dq", "dkv")}
+        route = "cuda_core" if dtype == torch.float32 else "wgmma_tma"
+        ok = (all(r[0] for r in results.values())
+              and all(v.startswith(route) for v in variants.values()))
         emit("flash_check", shape=[b, h, s, t, d], dtype=_dtype_name(dtype),
              mask=mask_kind, backward=backward, layout=layout, ok=ok,
-             variants={kind: flash.variant(kind, dtype, d)
-                       for kind in ("forward", "dq", "dkv")},
+             variants=variants,
              **{name: {"max_abs_err": r[1], "tol": r[2], "ok": r[0]}
                 for name, r in results.items()})
         if not ok:
-            raise AssertionError(f"flash kernels disagree at {(b, h, s, t, d, dtype)}: "
-                                 f"{results}")
+            raise AssertionError(f"flash kernels disagree at {(b, h, s, t, d, dtype)} "
+                                 f"({variants}): {results}")
         for name, r in results.items():
             if name in _FLASH_RESULT_KERNEL:
                 kernel = _FLASH_RESULT_KERNEL[name]
@@ -641,6 +681,8 @@ def phase_detector(device: str = "cuda") -> dict:
                              f"{det.path_counts['device']} device batches")
     if counts["flash_forward"] or counts["flash_dq"] or counts["flash_dkv"]:
         raise AssertionError(f"the MLP path launched flash kernels: {counts}")
+    variants = read_variants()["candidate_lse"]
+    check_head_variants(variants, "wgmma_tma_d128_", launches, "MLP")
     if not np.isfinite(threshold):
         raise AssertionError(f"threshold {threshold} is not finite")
 
@@ -682,7 +724,8 @@ def phase_detector(device: str = "cuda") -> dict:
         lines_per_s=N_DETECT / detect_s, n_detect=N_DETECT, call_size=CALL_SIZE,
         threshold=threshold, alerts=len(by_id), anomalies=len(anomalies),
         recall=recall, precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
-        launches=launches, launch_counts=counts, calibration_launches=calib_chunks,
+        launches=launches, launch_counts=counts, variants=variants,
+        calibration_launches=calib_chunks,
         device_batches=det.path_counts["device"],
         einsum_alerts=len(ein_by_id), decision_flips=len(flips),
         flip_distances=near, small_fp32_max_abs_err=small_err,
@@ -692,6 +735,15 @@ def phase_detector(device: str = "cuda") -> dict:
     if recall < 0.9:
         raise AssertionError(f"recall on the injected anomalies is {recall}")
     return result
+
+
+def check_head_variants(variants: dict, prefix: str, launches: int, path: str) -> None:
+    """Every fused-head launch of a path took a tensor-core variant at the
+    path's D (``prefix``); fails otherwise."""
+    if sum(variants.values()) != launches or \
+            not all(name.startswith(prefix) for name in variants):
+        raise AssertionError(f"the {path} path's {launches} fused-head launches took "
+                             f"the variants {variants}, not all {prefix}*")
 
 
 def logbert_expected_launches(device_batches: int) -> dict:
@@ -748,15 +800,17 @@ def phase_logbert_detector() -> dict:
         if counts[name] != expected[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the LogBERT "
                                  f"path, expected {expected[name]} ({expected})")
-    # bf16 at head_dim 64: every forward and dK/dV launch took the wgmma
-    # variant, every dQ launch the CUDA-core one
+    # bf16 at head_dim 64: every flash launch took its wgmma variant, every
+    # fused-head launch (D = 256) its tensor-core one
     variants = read_variants()
-    want_variants = {"flash_forward": {"wgmma_tma_d64": expected["flash_forward"]},
-                     "flash_dq": {"cuda_core_d64": expected["flash_dq"]},
-                     "flash_dkv": {"wgmma_tma_d64": expected["flash_dkv"]}}
-    if variants != want_variants:
-        raise AssertionError(f"the LogBERT path took the flash variants {variants}, "
-                             f"expected {want_variants}")
+    want_variants = {name: {"wgmma_tma_d64": expected[name]}
+                     for name in ("flash_forward", "flash_dq", "flash_dkv")}
+    flash_variants = {name: variants[name] for name in want_variants}
+    if flash_variants != want_variants:
+        raise AssertionError(f"the LogBERT path took the flash variants "
+                             f"{flash_variants}, expected {want_variants}")
+    check_head_variants(variants["candidate_lse"], "wgmma_tma_d256_",
+                        expected["candidate_lse"], "LogBERT")
     threshold = det._threshold
     if not np.isfinite(threshold):
         raise AssertionError(f"threshold {threshold} is not finite")
@@ -847,10 +901,17 @@ def main() -> int:
         "bound_by": mlp_row["bound_by"],
         "library_ms": mlp_row["library_ms"],
         "shape": [CALL_SIZE, 32768, 128],
+        "variant": mlp_row["variant"],
+        "bound_share": mlp_row["bound_share"],
+        "launches_by_variant": {"mlp": mlp["variants"],
+                                "logbert": logbert["variants"]["candidate_lse"]},
+        "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
+                  for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],
                                           **lse_times[(65536, 256)]),
         "logbert_detect_shape": dict(shape=[524288, 32768, 256],
                                      **lse_times[(524288, 256)]),
+        "mlp_calibration_shape": dict(shape=[32, 32768, 128], **lse_times[(32, 128)]),
     }]
     replaces = {"forward": "detectmateservice_tpu/ops/flash.py:64",
                 "dq": "detectmateservice_tpu/ops/flash.py:221",
@@ -875,6 +936,10 @@ def main() -> int:
         if kind == "forward":
             entry["training_shape"] = flash_times[("forward", "training")]
         kernels.append(entry)
+    spilled = {name: row for name, row in main_path_ptxas.items()
+               if row is None or row.get("spill_stores") or row.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"ptxas reports spills (or no entry) for {spilled}")
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,9 @@
 // to k's type in dQ, p to dO's type and ds to q's type in dK/dV (every operand
 // has the one type T here); products and sums are fp32.
 //
-// Variants, chosen by dtype and kind (`dm_flash_variant` names them):
-//   16-bit forward and dK/dV  -> wgmma kernels fed by TMA (below);
-//   fp32 forward and dK/dV    -> CUDA-core kernels, fp32 products;
-//   dQ, every dtype           -> CUDA-core kernel.
+// Variants, chosen by dtype (`dm_flash_variant` names them):
+//   16-bit forward, dQ and dK/dV -> wgmma kernels fed by TMA (below);
+//   fp32 forward, dQ and dK/dV   -> CUDA-core kernels, fp32 products.
 // A 16-bit launch the wgmma kernels refuse (an operand whose base or stride
 // is not a multiple of 16 bytes) fails; it never falls back.
 //
@@ -31,19 +30,20 @@
 // on O((S + T) * D) bytes per head, far above the card's operations-per-byte
 // line, so the bound is arithmetic: the bf16 tensor-core peak for 16-bit
 // operands. At D = 64 the forward also takes one exp per score against 256
-// tensor-core operations, and the SM's exp unit (16 a clock) needs about as
-// long as the tensor cores; with two or three warps of softmax a scheduler,
-// latency rather than either unit is what the forward waits on (PERF.md).
+// tensor-core operations (dQ: 384), and the SM's exp unit (16 a clock)
+// needs about as long as the tensor cores (dQ: two thirds); with two or
+// three warps of softmax a scheduler, latency rather than either unit is
+// what the forward waits on (PERF.md).
 //
 // Design of the wgmma kernels. A CTA holds consumer warpgroups of 64 rows
 // each and one producer warpgroup; `setmaxnreg` moves the producer's
 // registers to the consumers. One producer warp starts the TMA loads
 // (rank-4 tensor maps built from the caller's strides, 128-byte swizzle,
 // zero fill past the sequence and past D) into a ring of stages guarded by
-// full/empty mbarriers, and writes the per-key bias (forward) or the
+// full/empty mbarriers, and writes the per-key bias (forward, dQ) or the
 // per-query lse and delta (dK/dV) beside each stage. Tiles stay in their
 // 16-bit type in shared memory; every product is a wgmma with fp32
-// accumulators in registers:
+// accumulators in registers (helpers in hopper.cuh):
 //   forward: CTA per (batch*head, 192 query rows at D = 64, 128 at D = 128),
 //            three-stage ring of 128-key K and V tiles. Per stage, S = Q K^T
 //            (both operands in shared memory) is started together with
@@ -51,6 +51,15 @@
 //            as an MN-major B); the online softmax of S (row max and sum by
 //            quad shuffles, p rounded to T in registers) runs while P V is
 //            on the tensor cores, and O is rescaled once P V is done.
+//   dQ:      CTA per (batch*head, 128 query rows), two consumer warpgroups;
+//            Q and dO load once, K and V stream through a four-stage ring
+//            of 64-key tiles. Per stage, S = Q K^T and dP = dO V^T (SS),
+//            then p and ds in fp32 registers from the rows' lse and delta
+//            (held in registers), then dQ += dS K (dS as the register A
+//            operand, K read again as an MN-major B). dQ stays in registers
+//            over the whole key loop and is written once. Starting the next
+//            stage's S and dP with dS K, as the forward does with P V,
+//            measured slower (PERF.md).
 //   dK/dV:   CTA per (batch*head, 128 key rows), two consumer warpgroups;
 //            K and V load once; per stage of 64 (D = 64) or 32 (D = 128)
 //            query rows, S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in
@@ -61,30 +70,24 @@
 // The consumer warpgroups share each stage, so one's softmax also overlaps
 // another's products, and the producer keeps the next loads in flight.
 
-// CUDA-core kernels. One CTA owns one (batch*head, 64-row tile) and loops
-// over the other sequence itself, so no state crosses CTAs:
+// CUDA-core kernels (fp32). One CTA owns one (batch*head, 64-row tile) and
+// loops over the other sequence itself, so no state crosses CTAs:
 //   forward: CTA per query tile; loops over key tiles with (m, l) per row and
 //            the [64, D] accumulator in registers (online softmax);
 //   dQ:      CTA per query tile; loops over key tiles, recomputing p from lse;
 //   dK/dV:   CTA per key tile; loops over query tiles, recomputing p from lse.
 // dQ and dK/dV are split as in the JAX package, so neither needs atomics or a
-// second pass. Each tile is staged in shared memory as fp32 (exact for bf16
-// and fp16 inputs); each of the 256 threads computes a 4 x 4 block of the
-// 64 x 64 score tile and a 4 x (D/16) block of the [64, D] products.
+// second pass. Each tile is staged in shared memory; each of the 256
+// threads computes a 4 x 4 block of the 64 x 64 score tile and a
+// 4 x (D/16) block of the [64, D] products.
 //
 // Ragged tails, in every variant: key rows t >= T get s = -inf (p = 0, so a
 // fully masked row averages v over its T real keys only), query rows s >= S
 // are zero-filled and never written.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-#include <string.h>
+#include "hopper.cuh"
 
-#include <type_traits>
+#include <math.h>
 
 namespace {
 
@@ -93,26 +96,7 @@ constexpr int kBlockN = 64;   // key rows per tile
 constexpr int kThreads = 256; // 16 x 16 threads
 constexpr int kTileLd = 65;   // padded stride of a 64 x 64 score tile
 constexpr float kNegBig = -1e30f;
-constexpr size_t kMaxSmem = 232448;  // opt-in shared memory per block
 constexpr int kMaxDim = 128;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // x rounded to T and widened back: the cast the TPU kernels make before a
 // product
@@ -504,26 +488,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
 
 // -- 16-bit forward and dK/dV: wgmma on tiles staged by TMA ------------------
 
-constexpr int kWarpgroup = 128;
-
-// A wgmma kernel's warp roles: kConsumers warpgroups of 64 rows each, then
-// one producer warpgroup (one warp of it starts the loads), and the
-// registers a thread of each holds after setmaxnreg; together at most the
-// SM's 65,536, so one CTA fills an SM.
-template <int kConsumers_, int kProducerRegs_, int kConsumerRegs_>
-struct WarpRoles {
-  static constexpr int kConsumers = kConsumers_;
-  static constexpr int kThreads = (kConsumers + 1) * kWarpgroup;
-  static constexpr int kProducerWarp = kConsumers * kWarpgroup / 32;
-  static constexpr int kProducerRegs = kProducerRegs_;
-  static constexpr int kConsumerRegs = kConsumerRegs_;
-  static_assert((kProducerRegs + kConsumers * kConsumerRegs) * kWarpgroup <= 65536,
-                "more registers than an SM holds");
-};
-constexpr int kAtom = 64;      // 16-bit columns of one 128-byte swizzle row
 constexpr int kFwdKeys = 128;  // keys per forward stage
 constexpr int kDkvKeys = 128;  // key rows per dK/dV CTA
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDqKeys = 64;    // keys per dQ stage
 
 // The forward's roles: at D = 64 three consumer warpgroups (192 query rows)
 // at 160 registers; at D = 128 two at 232, for the wider accumulators.
@@ -564,311 +531,28 @@ struct DkvSmem : WarpRoles<2, 40, 232> {
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 
+// dQ: CTA per (batch*head, 128 query rows), two consumer warpgroups. A
+// thread holds S and dP of one 64-key stage (2 x 32 registers), dQ (kD / 2)
+// and the stage's dS fragment (16), 144 at D = 128; a 128-key stage would
+// take 208 before addresses and the loop's temporaries.
+template <int kD>
+struct DqSmem : WarpRoles<2, 40, 232> {
+  static constexpr int kChunks = kD / kAtom;
+  static constexpr int kRows = 128;
+  // a stage is released once dS K of it is done; four 64-key stages keep
+  // the next loads in flight meanwhile
+  static constexpr int kStages = 4;
+  alignas(1024) uint16_t q[kChunks][kRows * kAtom];
+  alignas(1024) uint16_t dout[kChunks][kRows * kAtom];
+  alignas(1024) uint16_t k[kStages][kChunks][kDqKeys * kAtom];
+  alignas(1024) uint16_t v[kStages][kChunks][kDqKeys * kAtom];
+  float bias[kStages][kDqKeys];  // the caller's bias; -inf past T
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
 struct TcArgs {
   CUtensorMap q, k, v, dout;  // rank 4: (D, sequence, head, batch)
   Params p;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* ptr) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(ptr) + 1023) &
-                                    ~static_cast<uintptr_t>(1023));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of TMA transfer before the phase completes
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one TMA box (64 columns x the map's box rows) at (col, row, head, batch)
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
-      "r"(batch), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled tile at `tile`. K-major operands
-// (rows of 64 contiguous K values): lbo unused (16), sbo = 1024, the stride
-// of 8 rows. MN-major operands (rows of 64 contiguous N values, one row per
-// K index): lbo = the stride from one 64-column chunk to the next, sbo =
-// 1024, the stride of 8 K rows.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most `kPending` committed wgmma groups are still running
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
-}
-
-template <int kRegs> __device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
-}
-template <int kRegs> __device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
-}
-
-// a consumer warp is done with a stage: one arrival per warp
-__device__ __forceinline__ void release_stage(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
-}
-
-// keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma instructions that own them
-template <int kN>
-__device__ __forceinline__ void pin(float (&acc)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
-
-// 2^x on the SFU alone (results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// m64 nN k16 products with fp32 accumulators, the accumulator fragment of
-// the PTX ISA: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
-// and that + 8, columns 8 j + 2 (t % 4) and + 1 of every 8-column block j, as
-// d[4 j + 0..1] (first row) and d[4 j + 2..3] (second row). `ss` reads A and
-// B from shared memory, both K-major; `rs` reads A from registers (the same
-// fragment as mma.sync's m16n8k16 A, per warp) and B MN-major.
-template <int N, typename T> struct Mma;
-
-template <> struct Mma<32, __nv_bfloat16> {
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-template <> struct Mma<64, __nv_bfloat16> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Mma<128, __nv_bfloat16> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Mma<32, __half> {
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-template <> struct Mma<64, __half> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Mma<128, __half> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
 };
 
 // A [64, kD] accumulator fragment (rows row, row + 8 of the warpgroup's) to
@@ -1267,12 +951,184 @@ __global__ void __launch_bounds__(DkvSmem<kD>::kThreads, 1)
                      p.t, p.d, col0);
 }
 
+// S = Q K^T and dP = dO V^T of one dQ stage for warpgroup wg: [64 rows,
+// 64 keys] each, all four operands K-major in shared memory
+template <int kD, typename T>
+__device__ __forceinline__ void start_dq_scores(float (&sc)[kDqKeys / 2],
+                                                float (&dp)[kDqKeys / 2],
+                                                const DqSmem<kD>& sm, int s,
+                                                int wg) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int off = wg * 64 * kAtom + (kk % 4) * 16;
+    const int key_off = (kk % 4) * 16;
+    Mma<kDqKeys, T>::ss(sc, sw128_desc(&sm.q[kk / 4][off], 16, 1024),
+                        sw128_desc(&sm.k[s][kk / 4][key_off], 16, 1024), kk);
+    Mma<kDqKeys, T>::ss(dp, sw128_desc(&sm.dout[kk / 4][off], 16, 1024),
+                        sw128_desc(&sm.v[s][kk / 4][key_off], 16, 1024), kk);
+  }
+}
+
+// dQ += dS K of one stage: dS from registers, K MN-major in shared memory
+// (the same swizzled tile the scores read K-major)
+template <int kD, typename T>
+__device__ __forceinline__ void start_dq_product(float (&dq)[kD / 2],
+                                                 const uint32_t (&df)[kDqKeys / 16][4],
+                                                 const DqSmem<kD>& sm, int s) {
+#pragma unroll
+  for (int kb = 0; kb < kDqKeys / 16; ++kb) {
+    const uint64_t b =
+        sw128_desc(&sm.k[s][0][kb * 16 * kAtom], kDqKeys * kAtom * 2, 1024);
+    Mma<kD, T>::rs(dq, df[kb], b);
+  }
+}
+
+// dS of one stage (this thread's fragment of rows r and r + 8) in fp32:
+// x = s * scale + bias, p = exp(x - lse) taken as exp2((x - lse) log2 e),
+// ds = p (dP - delta), rounded to k's type as the A fragments of dS K. x -
+// lse is exact where both are the -1e30 PAD level, so a fully masked row
+// recomputes p = 1 on its real keys (and 0 past T, where the bias is -inf).
+template <typename T>
+__device__ __forceinline__ void stage_ds(const float (&sc)[kDqKeys / 2],
+                                         const float (&dp)[kDqKeys / 2],
+                                         const float* bias, float scale, int col0,
+                                         const float (&lse)[2],
+                                         const float (&delta)[2],
+                                         uint32_t (&df)[kDqKeys / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kDqKeys / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(&bias[j * 8 + col0]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x0 = sc[4 * j + 2 * h] * scale + b.x;
+      const float x1 = sc[4 * j + 2 * h + 1] * scale + b.y;
+      const float p0 = exp2_ftz((x0 - lse[h]) * kLog2e);
+      const float p1 = exp2_ftz((x1 - lse[h]) * kLog2e);
+      df[j / 2][(j % 2) * 2 + h] =
+          pack2<T>(p0 * (dp[4 * j + 2 * h] - delta[h]),
+                   p1 * (dp[4 * j + 2 * h + 1] - delta[h]));
+    }
+  }
+}
+
+template <int kD, typename T>
+__global__ void __launch_bounds__(DqSmem<kD>::kThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ TcArgs args) {
+  using Smem = DqSmem<kD>;
+  constexpr int kChunks = Smem::kChunks;
+  constexpr int kStages = Smem::kStages;
+  constexpr int kRows = Smem::kRows;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
+  const Params& p = args.p;
+  const int qtile = blockIdx.x % p.n_qtiles;
+  const int bh = blockIdx.x / p.n_qtiles;
+  const int bi = bh / p.h;
+  const int hi = bh % p.h;
+  const int row0 = qtile * kRows;
+  const int n_tiles = (p.t + kDqKeys - 1) / kDqKeys;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);                     // the producer warp's lanes
+      mbar_init(&sm.empty[s], Smem::kConsumers * 4);  // a lane a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= Smem::kProducerWarp) {  // the producer warpgroup: one warp loads
+    setmaxnreg_dec<Smem::kProducerRegs>();
+    if (warp != Smem::kProducerWarp) return;
+    if (lane == 0) {
+      mbar_arrive_tx(&sm.q_full, 2 * kChunks * kRows * kAtom * 2);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sm.q[c], &args.q, &sm.q_full, c * kAtom, row0, hi, bi);
+        tma_load(sm.dout[c], &args.dout, &sm.q_full, c * kAtom, row0, hi, bi);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+      const int key0 = it * kDqKeys;
+      for (int j = lane; j < kDqKeys; j += 32) {
+        const int key = key0 + j;
+        sm.bias[s][j] = key < p.t
+                            ? (p.bias ? p.bias[(long long)bi * p.t + key] : 0.f)
+                            : -INFINITY;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&sm.full[s], 2 * kChunks * kDqKeys * kAtom * 2);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sm.k[s][c], &args.k, &sm.full[s], c * kAtom, key0, hi, bi);
+          tma_load(sm.v[s][c], &args.v, &sm.full[s], c * kAtom, key0, hi, bi);
+        }
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows row0 + 64 wg + [0, 64). Per stage,
+  // S and dP, then dS in registers, then dS K; the other warpgroup's
+  // products run on the tensor cores while this one computes dS.
+  setmaxnreg_inc<Smem::kConsumerRegs>();
+  const int wg = warp / 4;
+  const int r = (warp % 4) * 16 + lane / 4;  // this thread's rows: r, r + 8
+  const int col0 = (lane % 4) * 2;
+  const int row = row0 + wg * 64 + r;
+  // the thread's rows stay the same over the key loop, so their lse and
+  // delta live in registers; 0 past S, where Q and dO are zero-filled and
+  // ds comes out 0
+  float lse[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row + 8 * h;
+    lse[h] = i < p.s ? p.lse[(long long)bh * p.s + i] : 0.f;
+    delta[h] = i < p.s ? p.delta[(long long)bh * p.s + i] : 0.f;
+  }
+  float dq[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
+  float sc[kDqKeys / 2], dp[kDqKeys / 2];
+  uint32_t df[kDqKeys / 16][4];  // dS of the stage, in k's type
+
+  mbar_wait(&sm.q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    wgmma_fence();
+    start_dq_scores<kD, T>(sc, dp, sm, s, wg);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+    pin(dp);
+    stage_ds<T>(sc, dp, sm.bias[s], p.scale, col0, lse, delta, df);
+    wgmma_fence();
+    start_dq_product<kD, T>(dq, df, sm, s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dq);
+    release_stage(&sm.empty[s], lane);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq[i] *= p.scale;
+  store_fragment<kD>(static_cast<T*>(p.dq) + (long long)bh * p.s * p.d, dq, row,
+                     p.s, p.d, col0);
+}
+
 // -- launches -----------------------------------------------------------------
 
 enum Kind { kForward = 0, kDq = 1, kDkv = 2 };
 
-// dtype 0 = float32, 1 = float16, 2 = bfloat16
-bool uses_wgmma(Kind kind, int dtype) { return dtype != 0 && kind != kDq; }
+// dtype 0 = float32, 1 = float16, 2 = bfloat16: every 16-bit launch takes a
+// wgmma kernel, every fp32 one a CUDA-core kernel
+bool uses_wgmma(int dtype) { return dtype != 0; }
 
 size_t smem_bytes(Kind kind, int kd) {
   const size_t tile = (size_t)64 * (kd + 4);
@@ -1284,96 +1140,28 @@ size_t smem_bytes(Kind kind, int kd) {
   }
 }
 
-template <typename Kernel, typename Arg>
-cudaError_t launch_grid(Kernel kernel, long long blocks, int threads,
-                        size_t smem, cudaStream_t stream, const Arg& arg) {
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((unsigned)blocks), threads, smem, stream>>>(arg);
-  return cudaGetLastError();
-}
-
-// the CUDA-core kernels: fp32 forward and dK/dV, and dQ in every dtype
-template <int kD, typename T>
+// the CUDA-core kernels: fp32 forward, dQ and dK/dV
+template <int kD>
 cudaError_t launch_cuda_core(Kind kind, const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) = flash_dq_kernel<kD, T>;
+  void (*kernel)(Params) = flash_dq_kernel<kD, float>;
   long long blocks = (long long)p.b * p.h * p.n_qtiles;
-  if constexpr (std::is_same<T, float>::value) {
-    if (kind == kForward) kernel = flash_fwd_kernel<kD, T>;
-    if (kind == kDkv) {
-      kernel = flash_dkv_kernel<kD, T>;
-      blocks = (long long)p.b * p.h * p.n_ktiles;
-    }
+  if (kind == kForward) kernel = flash_fwd_kernel<kD, float>;
+  if (kind == kDkv) {
+    kernel = flash_dkv_kernel<kD, float>;
+    blocks = (long long)p.b * p.h * p.n_ktiles;
   }
   return launch_grid(kernel, blocks, kThreads, smem_bytes(kind, kD), stream, p);
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time: the library
-// links the CUDA runtime only
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A rank-4 map (D, rows, heads, batch) over one 16-bit operand with element
-// strides ss, sh, sb: boxes of 64 columns x box_rows rows, 128-byte swizzle,
-// zeros past `rows` and past d. TMA wants the base and every stride at a
-// multiple of 16 bytes; a size-1 dimension's stride moves no address and is
-// replaced by a packed one.
-template <typename T>
-cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows,
-                     int heads, int batch, long long ss, long long sh,
-                     long long sb, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t s1 = rows > 1 ? ss * 2 : ((cuuint64_t)d * 2 + 15) / 16 * 16;
-  const cuuint64_t s2 = heads > 1 ? sh * 2 : s1 * rows;
-  const cuuint64_t s3 = batch > 1 ? sb * 2 : s2 * heads;
-  if ((reinterpret_cast<uintptr_t>(base) | s1 | s2 | s3) & 15)
-    return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {s1, s2, s3};
-  const cuuint32_t box[4] = {kAtom, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map,
-      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      4, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// the wgmma kernels: 16-bit forward and dK/dV
+// the wgmma kernels: 16-bit forward, dQ and dK/dV. Q and dO are boxes of a
+// CTA's query rows (forward, dQ) or of one stage's (dK/dV); K and V of one
+// stage's keys (forward, dQ) or of a CTA's (dK/dV).
 template <int kD, typename T>
 cudaError_t launch_wgmma(Kind kind, Params p, cudaStream_t stream) {
-  const bool fwd = kind == kForward;
-  const int q_box = fwd ? FwdSmem<kD>::kRows : DkvSmem<kD>::kRows;
-  const int kv_box = fwd ? kFwdKeys : kDkvKeys;
+  const int q_box = kind == kForward ? FwdSmem<kD>::kRows
+                    : kind == kDq    ? DqSmem<kD>::kRows
+                                     : DkvSmem<kD>::kRows;
+  const int kv_box = kind == kForward ? kFwdKeys : kind == kDq ? kDqKeys : kDkvKeys;
   TcArgs args;
   memset(&args, 0, sizeof(args));
   cudaError_t err = make_map<T>(&args.q, p.q, p.d, p.s, p.h, p.b, p.q_ss,
@@ -1384,32 +1172,38 @@ cudaError_t launch_wgmma(Kind kind, Params p, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = make_map<T>(&args.v, p.v, p.d, p.t, p.h, p.b, p.v_ss, p.v_sh, p.v_sb,
                       kv_box);
-  if (err == cudaSuccess && !fwd)
+  if (err == cudaSuccess && kind != kForward)
     err = make_map<T>(&args.dout, p.dout, p.d, p.s, p.h, p.b, p.do_ss, p.do_sh,
                       p.do_sb, q_box);
   if (err != cudaSuccess) return err;
-  p.n_qtiles = (p.s + FwdSmem<kD>::kRows - 1) / FwdSmem<kD>::kRows;
+  p.n_qtiles = (p.s + q_box - 1) / q_box;
   p.n_ktiles = (p.t + kDkvKeys - 1) / kDkvKeys;
   args.p = p;
   const long long bh = (long long)p.b * p.h;
-  if (fwd)
-    return launch_grid(flash_fwd_wgmma_kernel<kD, T>, bh * p.n_qtiles,
-                       FwdSmem<kD>::kThreads, sizeof(FwdSmem<kD>) + 1024, stream,
-                       args);
-  return launch_grid(flash_dkv_wgmma_kernel<kD, T>, bh * p.n_ktiles,
-                     DkvSmem<kD>::kThreads,
-                     sizeof(DkvSmem<kD>) + 1024, stream, args);
+  switch (kind) {
+    case kForward:
+      return launch_grid(flash_fwd_wgmma_kernel<kD, T>, bh * p.n_qtiles,
+                         FwdSmem<kD>::kThreads, sizeof(FwdSmem<kD>) + 1024, stream,
+                         args);
+    case kDq:
+      return launch_grid(flash_dq_wgmma_kernel<kD, T>, bh * p.n_qtiles,
+                         DqSmem<kD>::kThreads, sizeof(DqSmem<kD>) + 1024, stream,
+                         args);
+    default:
+      return launch_grid(flash_dkv_wgmma_kernel<kD, T>, bh * p.n_ktiles,
+                         DkvSmem<kD>::kThreads, sizeof(DkvSmem<kD>) + 1024, stream,
+                         args);
+  }
 }
 
 template <typename T>
-cudaError_t launch_t(Kind kind, const Params& p, int dtype, cudaStream_t stream) {
-  if constexpr (!std::is_same<T, float>::value) {
-    if (uses_wgmma(kind, dtype))
-      return p.d <= 64 ? launch_wgmma<64, T>(kind, p, stream)
-                       : launch_wgmma<128, T>(kind, p, stream);
-  }
-  return p.d <= 64 ? launch_cuda_core<64, T>(kind, p, stream)
-                   : launch_cuda_core<128, T>(kind, p, stream);
+cudaError_t launch_t(Kind kind, const Params& p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return p.d <= 64 ? launch_cuda_core<64>(kind, p, stream)
+                     : launch_cuda_core<128>(kind, p, stream);
+  else
+    return p.d <= 64 ? launch_wgmma<64, T>(kind, p, stream)
+                     : launch_wgmma<128, T>(kind, p, stream);
 }
 
 int launch(Kind kind, Params& p, int dtype, void* stream) {
@@ -1419,9 +1213,9 @@ int launch(Kind kind, Params& p, int dtype, void* stream) {
   p.n_ktiles = (p.t + kBlockN - 1) / kBlockN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_t<float>(kind, p, dtype, s);
-    case 1: return (int)launch_t<__half>(kind, p, dtype, s);
-    case 2: return (int)launch_t<__nv_bfloat16>(kind, p, dtype, s);
+    case 0: return (int)launch_t<float>(kind, p, s);
+    case 1: return (int)launch_t<__half>(kind, p, s);
+    case 2: return (int)launch_t<__nv_bfloat16>(kind, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1501,7 +1295,7 @@ const char* dm_flash_variant(int kind, int dtype, int d) {
     return "";
   static const char* const names[2][2] = {{"cuda_core_d64", "cuda_core_d128"},
                                           {"wgmma_tma_d64", "wgmma_tma_d128"}};
-  return names[uses_wgmma(static_cast<Kind>(kind), dtype)][d > 64];
+  return names[uses_wgmma(dtype)][d > 64];
 }
 
 // Largest head dimension the kernels take.

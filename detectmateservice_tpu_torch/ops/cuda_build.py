@@ -3,8 +3,9 @@
 Each kernel source has a plain C interface, so ``nvcc`` compiles it in
 seconds into a ``.so`` that ``ctypes`` loads; no PyTorch headers and no
 ``ninja`` are involved. The library goes into ``ops/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the source, the flags and
-the target, so an edited source rebuilds and an unchanged one is reused.
+``.gitignore``) under a name keyed by a hash of the source, the headers of
+``csrc/``, the flags and the target, so an edited source or header rebuilds
+and an unchanged one is reused.
 
 Nothing here runs at import time: the first launch of a kernel builds it.
 A failed build raises; there is no fallback.
@@ -52,9 +53,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``source`` (a file name under csrc/) builds to."""
-    text = (CSRC_DIR / source).read_bytes()
-    key = hashlib.sha256(text + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    """Where ``source`` (a file name under csrc/) builds to: keyed by its
+    bytes, every header of csrc/ (a source may include any of them) and
+    the flags."""
+    key = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
+    key.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{key.hexdigest()[:16]}.so"
 
 

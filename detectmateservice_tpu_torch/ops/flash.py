@@ -21,10 +21,10 @@ On CPU tensors each wrapper computes its plain version
 ``flash_dkv_reference``: the same math in torch, chunked over batch·head so
 the fp32 scores stay bounded); on CUDA tensors it launches its kernel or
 raises. Each counts its kernel launches in ``.launches``, and by kernel
-variant in ``.variants``: bf16 and fp16 forward and dK/dV take the wgmma
-kernels fed by TMA (``variant``), which want every operand's base address
-and batch, head and sequence strides at multiples of 16 bytes and raise
-otherwise; fp32 and dQ take the CUDA-core kernels.
+variant in ``.variants``: bf16 and fp16 launches take the wgmma kernels fed
+by TMA (``variant``), which want every operand's base address and batch,
+head and sequence strides at multiples of 16 bytes and raise otherwise;
+fp32 launches take the CUDA-core kernels.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a backward is
 pending (grad mode on and an input requires grad): its forward saves lse and
@@ -275,14 +275,15 @@ def variant(kind: str, dtype: torch.dtype, d: int) -> str:
 
 
 def check_tma_alignment(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless each operand's base address and its batch, head and
-    sequence strides (of dimensions longer than 1) are multiples of 16
+    """Raise unless each operand's base address and its strides along
+    every dimension but the last (of dimensions longer than 1: batch, head
+    and sequence for flash, rows for the fused head) are multiples of 16
     bytes, as the wgmma kernels' TMA loads need. No copy is made: the
     caller's views either fit or are refused."""
     for t in tensors:
         size = t.element_size()
         bad = [f"stride {s * size} B along dim {i}"
-               for i, (n, s) in enumerate(zip(t.shape[:3], t.stride()[:3]))
+               for i, (n, s) in enumerate(zip(t.shape[:-1], t.stride()[:-1]))
                if n > 1 and (s * size) % _TMA_ALIGN]
         if t.data_ptr() % _TMA_ALIGN:
             bad.insert(0, f"base address {t.data_ptr():#x}")

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -140,6 +141,12 @@ ptxas info    : Used 255 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b1a7c10f_12_scorehead_cu_b7acb64510lse_kernelI6__halfEEvPKT_S4_Pfiiii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b1a7c10f_12_scorehead_cu_b7acb64516lse_wgmma_kernelILi256E13__nv_bfloat16EEvNS_7LseArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b1a7c10f_12_scorehead_cu_b7acb64518lse_combine_kernelEPKfPfii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers
 """
 
 
@@ -152,6 +159,51 @@ def test_ptxas_summary_reads_registers_and_spills_per_kernel():
                                        "spill_loads": 40, "registers": 255},
         "lse_kernel<fp16>": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
                              "registers": 64},
+        "lse_wgmma_kernel<256, bf16>": {"stack": 0, "spill_stores": 0,
+                                        "spill_loads": 0, "registers": 168},
+        "lse_combine_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                               "registers": 18},
     }
-    assert chip_smoke.MAIN_PATH_WGMMA == {"forward": "flash_fwd_wgmma_kernel<64, bf16>",
-                                          "dkv": "flash_dkv_wgmma_kernel<64, bf16>"}
+    # every tensor-core kernel of the main paths, keyed as ptxas_summary
+    # names them, and none of them may spill
+    assert chip_smoke.MAIN_PATH_WGMMA == {
+        "forward": "flash_fwd_wgmma_kernel<64, bf16>",
+        "dq": "flash_dq_wgmma_kernel<64, bf16>",
+        "dkv": "flash_dkv_wgmma_kernel<64, bf16>",
+        "lse_d128": "lse_wgmma_kernel<128, bf16>",
+        "lse_d256": "lse_wgmma_kernel<256, bf16>",
+        "lse_combine": "lse_combine_kernel"}
+    assert set(chip_smoke.NO_SPILL) == {*chip_smoke.MAIN_PATH_WGMMA.values(),
+                                        "flash_dq_wgmma_kernel<128, bf16>"}
+
+
+def test_lse_cases_give_the_tensor_core_variants_every_edge():
+    """bf16 twins of the ragged-C edge at every D the plan takes (613 and
+    1031 columns, not whole 128-column stages), N = 1 at both main-path
+    widths, the MLP calibration bucket N = 32, fp16 at D = 256 with N = 1,
+    32 and 37, and the extreme values; the fp32 cases stay."""
+    cases = set(chip_smoke.LSE_CASES)
+    bf16 = torch.bfloat16
+    for c in (613, 1031):
+        for d in (64, 128, 256):
+            assert (100, c, d, bf16) in cases
+    assert {(1, 32768, 128, bf16), (1, 32768, 256, bf16), (32, 32768, 128, bf16),
+            (37, 64, 256, torch.float16), (32, 1031, 256, torch.float16),
+            (1, 1031, 256, torch.float16), (16, 16, 32, bf16)} <= cases
+    fp32 = {case for case in cases if case[3] == torch.float32}
+    assert fp32 == {(1000, 2048, 128, torch.float32), (100, 613, 16, torch.float32),
+                    (16, 16, 32, torch.float32)}
+    # every main-path bucket is timed, the MLP calibration one included
+    assert {(32, 128), (4096, 128), (16384, 128), (65536, 256),
+            (524288, 256)} <= set(chip_smoke.LSE_TIMED)
+
+
+def test_head_variant_check_wants_every_launch_at_the_paths_width():
+    chip_smoke.check_head_variants({"wgmma_tma_d128_split64": 64,
+                                    "wgmma_tma_d128_split12": 16}, "wgmma_tma_d128_", 80,
+                                   "MLP")
+    for variants, launches in (({"cuda_core": 80}, 80),
+                               ({"wgmma_tma_d128_split12": 16}, 80),
+                               ({"wgmma_tma_d256_split1": 32}, 32)):
+        with pytest.raises(AssertionError, match="fused-head launches"):
+            chip_smoke.check_head_variants(variants, "wgmma_tma_d128_", launches, "MLP")

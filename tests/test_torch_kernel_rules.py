@@ -50,7 +50,7 @@ def _library_uses(tree: ast.AST) -> list:
 
 def test_the_scan_covers_the_package():
     assert len(PY_MODULES) > 10
-    assert {p.name for p in CUDA_SOURCES} >= {"flash.cu", "scorehead.cu"}
+    assert {p.name for p in CUDA_SOURCES} >= {"flash.cu", "scorehead.cu", "hopper.cuh"}
 
 
 @pytest.mark.parametrize("path", PY_MODULES, ids=lambda p: str(p.relative_to(PACKAGE)))
@@ -123,3 +123,29 @@ def test_variants_are_named_by_kind():
     assert "enum Kind { kForward = 0, kDq = 1, kDkv = 2 };" in text
     for name in ("wgmma_tma_d64", "wgmma_tma_d128", "cuda_core_d64", "cuda_core_d128"):
         assert f'"{name}"' in text
+
+
+def test_every_16_bit_flash_kind_takes_a_wgmma_kernel():
+    """dQ joined the forward and dK/dV: the variant depends on the dtype
+    alone, so ``dm_flash_variant(1, bf16, 64)`` names ``wgmma_tma_d64``, and
+    fp32 keeps the CUDA-core kernels."""
+    text = (PACKAGE / "ops" / "csrc" / "flash.cu").read_text()
+    assert "bool uses_wgmma(int dtype) { return dtype != 0; }" in text
+    assert "return names[uses_wgmma(dtype)][d > 64];" in text
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                   "flash_dkv_wgmma_kernel"):
+        assert f"launch_grid({kernel}<kD, T>" in text
+    # the CUDA-core kernels are launched for fp32 alone
+    assert "flash_dq_kernel<kD, float>" in text and "flash_dq_kernel<kD, T>" not in text
+
+
+@pytest.mark.parametrize("source", ["flash.cu", "scorehead.cu"])
+def test_hopper_helpers_live_in_one_header(source):
+    """The wgmma, TMA and mbarrier helpers come from csrc/hopper.cuh; no
+    source keeps a copy of its own."""
+    text = (PACKAGE / "ops" / "csrc" / source).read_text()
+    assert '#include "hopper.cuh"' in text
+    for helper in ("struct WarpRoles", "void mbar_wait(", "void tma_load(",
+                   "uint64_t sw128_desc(", "struct Mma<", "EncodeTiled encode_tiled(",
+                   "cudaError_t make_map(", "void setmaxnreg_inc(", "uint32_t pack2<"):
+        assert helper not in text
