@@ -39,11 +39,26 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    ``head_impl: pallas``: fit on 512 messages (112 train steps through the
    flash forward, dQ and dK/dV kernels), then 4096 messages in calls of 256;
    the same stream through the einsum attention and head on the same fitted
-   weights must give the same alert decisions.
+   weights must give the same alert decisions;
+9. the GRU detector at ``examples/gru_config.yaml``'s widths (vocab 32768,
+   dim 128, depth 1, seq_len 32, ``score_norm: position``, threshold_sigma
+   5, max_batch 4096, bf16) with ``head_impl: pallas``: fit on 512
+   messages (108 train steps, then 4 calibration chunks of N = 1,024 head
+   rows), then 65,536 messages in calls of 4096 (16 device batches of
+   N = 131,072 head rows); the same stream through the einsum head on the
+   same fitted weights and norm statistics must give the same decisions;
+10. phase 7's MLP detector with ``dtype: int8w``: the parity gate must
+   install the int8 path (``activated``, 0 flips); its lines/s beside phase
+   7's, the ``quant_stats`` bytes, and its decisions against the bf16
+   detector on the same fitted weights;
+11. checkpoints on the card: the fitted GRU and int8w detectors saved and
+   restored into fresh detectors, which must score one batch of 4096
+   bit-equal with an equal threshold (the int8w one re-activating
+   ungated).
 
 Each detector run resets every kernel's launch count just before and reads
 them just after; the counts must be exactly what the path launches, and
-every bf16 flash and fused-head launch on both paths must have taken its
+every bf16 flash and fused-head launch on every path must have taken its
 tensor-core (wgmma) variant. Then
 the kernel summary line, and last ``{"ok": true, "device": ...}``. Any
 failed phase raises, so the script exits non-zero and prints no result; so
@@ -59,7 +74,10 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -98,9 +116,25 @@ LOGBERT_DETECT = 4096
 LOGBERT_CALL = 256
 LOGBERT_PLAIN_CALL = 64  # einsum attention: [64, 4, 2048, 2048] fp32 logits
 
+# examples/gru_config.yaml on the port, with the fused head; the fit runs
+# synchronously so that its seconds are measured
+GRU_CONFIG = {
+    "method_type": "torch_scorer", "auto_config": False, "model": "gru",
+    "vocab_size": 32768, "dim": 128, "depth": 1, "seq_len": 32,
+    "score_norm": "position", "data_use_training": 512, "train_epochs": 4,
+    "threshold_sigma": 5.0, "max_batch": 4096, "head_impl": "pallas",
+    "dtype": "auto", "async_fit": False,
+}
+GRU_DETECT = 65536
+GRU_CALL = 4096
+
+# phase 7's configuration under weight-only int8
+INT8_CONFIG = dict(SCORER_CONFIG, dtype="int8w")
+
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
-# chunk (N = B * 2048 rows), then edge shapes
+# chunk (N = B * 2048 rows), the GRU path's (N = B * 32 rows), then edge
+# shapes
 LSE_CASES = [
     (16384, 32768, 128, torch.bfloat16),
     (4096, 32768, 128, torch.bfloat16),
@@ -109,6 +143,8 @@ LSE_CASES = [
     (524288, 32768, 256, torch.bfloat16),
     (65536, 32768, 256, torch.bfloat16),
     (1, 32768, 256, torch.bfloat16),
+    (131072, 32768, 128, torch.bfloat16),   # the GRU path's detect batch
+    (1024, 32768, 128, torch.bfloat16),     # and calibration chunk
     (1000, 2048, 128, torch.float32),
     (100, 613, 16, torch.float32),
     (16, 16, 32, torch.float32),   # the extreme values of test_scorehead.py
@@ -129,7 +165,7 @@ LSE_CASES = [
 ]
 # (N, D) of the fused-head timings; the plain version runs in row chunks
 LSE_TIMED = ((16384, 128), (4096, 128), (256, 128), (32, 128), (65536, 256),
-             (524288, 256))
+             (524288, 256), (131072, 128), (1024, 128))
 LSE_PLAIN_ROWS = 16384
 # the library call's bf16 [N, C] product (4 GiB at 65,536 rows) fits at
 # N <= 65536; beyond, it runs once per row chunk of this size
@@ -221,7 +257,8 @@ def phase_card() -> tuple:
     name = torch.cuda.get_device_name(0)
     # what the machine offers beyond what the port uses (found, not imported)
     present = {mod: importlib.util.find_spec(mod) is not None
-               for mod in ("pydantic", "yaml", "jax", "triton")}
+               for mod in ("pydantic", "yaml", "jax", "triton", "zmq",
+                           "prometheus_client")}
     present["protobuf"] = (importlib.util.find_spec("google") is not None
                            and importlib.util.find_spec("google.protobuf") is not None)
     present["ninja"] = shutil.which("ninja") is not None
@@ -649,6 +686,17 @@ def _flips(det_by_id, plain_by_id, plain_det, msgs, threshold, call: int) -> tup
     return flips, near
 
 
+def _stream(det, msgs, call: int) -> tuple:
+    """``process_batch`` over ``msgs`` in calls of ``call``, then
+    ``flush_final``: (alerts, seconds)."""
+    alerts = []
+    t0 = time.perf_counter()
+    for start in range(0, len(msgs), call):
+        alerts.extend(det.process_batch(msgs[start:start + call]))
+    alerts.extend(det.flush_final())
+    return alerts, time.perf_counter() - t0
+
+
 def phase_detector(device: str = "cuda") -> dict:
     det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": SCORER_CONFIG}})
     t0 = time.perf_counter()
@@ -662,12 +710,7 @@ def phase_detector(device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     assert det.process_batch(train_msgs) == []   # sync fit at the boundary
     fit_s = time.perf_counter() - t0
-    alerts = []
-    t0 = time.perf_counter()
-    for start in range(0, N_DETECT, CALL_SIZE):
-        alerts.extend(det.process_batch(detect_msgs[start:start + CALL_SIZE]))
-    alerts.extend(det.flush_final())
-    detect_s = time.perf_counter() - t0
+    alerts, detect_s = _stream(det, detect_msgs, CALL_SIZE)
     counts = read_launches()
     launches = counts["candidate_lse"]
 
@@ -698,10 +741,7 @@ def phase_detector(device: str = "cuda") -> dict:
         SCORER_CONFIG, head_impl="einsum", data_use_training=0,
         score_threshold=threshold)}})
     ein.load_params(det._model.state_dict())
-    ein_alerts = []
-    for start in range(0, N_DETECT, CALL_SIZE):
-        ein_alerts.extend(ein.process_batch(detect_msgs[start:start + CALL_SIZE]))
-    ein_alerts.extend(ein.flush_final())
+    ein_alerts, _ = _stream(ein, detect_msgs, CALL_SIZE)
     if scorehead.candidate_lse.launches != launches:
         raise AssertionError("the einsum head launched the fused kernel")
     ein_by_id = _alerts_by_id(ein_alerts, threshold)
@@ -781,12 +821,7 @@ def phase_logbert_detector() -> dict:
     assert det.process_batch(train_msgs) == []   # sync fit at the boundary
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    alerts = []
-    t0 = time.perf_counter()
-    for start in range(0, LOGBERT_DETECT, LOGBERT_CALL):
-        alerts.extend(det.process_batch(detect_msgs[start:start + LOGBERT_CALL]))
-    alerts.extend(det.flush_final())
-    detect_s = time.perf_counter() - t0
+    alerts, detect_s = _stream(det, detect_msgs, LOGBERT_CALL)
     counts = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -823,13 +858,7 @@ def phase_logbert_detector() -> dict:
         LOGBERT_CONFIG, attn_impl="einsum", head_impl="einsum", data_use_training=0,
         score_threshold=threshold)}})
     plain.load_params(det._model.state_dict())
-    plain_alerts = []
-    t0 = time.perf_counter()
-    for start in range(0, LOGBERT_DETECT, LOGBERT_PLAIN_CALL):
-        plain_alerts.extend(plain.process_batch(
-            detect_msgs[start:start + LOGBERT_PLAIN_CALL]))
-    plain_alerts.extend(plain.flush_final())
-    plain_s = time.perf_counter() - t0
+    plain_alerts, plain_s = _stream(plain, detect_msgs, LOGBERT_PLAIN_CALL)
     if read_launches() != counts:
         raise AssertionError("the einsum paths launched a kernel")
     plain_by_id = _alerts_by_id(plain_alerts, threshold)
@@ -868,6 +897,233 @@ def phase_logbert_detector() -> dict:
     return result
 
 
+# -- phases 9 to 11 ----------------------------------------------------------
+def gru_expected_launches(device_batches: int) -> dict:
+    """What the GRU path launches: the fused head in every calibration chunk
+    of the held-out split (N = 32 * seq_len rows) and every device batch;
+    the train steps run the einsum logits, no kernel."""
+    cfg = GRU_CONFIG
+    bs = 32  # train_batch_size
+    n_cal = max(16, cfg["data_use_training"] // 5)
+    steps_per_epoch = (cfg["data_use_training"] - n_cal) // bs
+    epochs = max(cfg["train_epochs"], -(-100 // steps_per_epoch))  # min_train_steps
+    calib = -(-n_cal // bs)
+    return {"candidate_lse": calib + device_batches, "train_steps": epochs * steps_per_epoch,
+            "calibration_chunks": calib, "calibration_rows": bs * cfg["seq_len"],
+            "detect_rows": GRU_CALL * cfg["seq_len"]}
+
+
+def phase_gru_detector(device: str = "cuda") -> tuple:
+    det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": GRU_CONFIG}})
+    t0 = time.perf_counter()
+    det.setup_io()
+    setup_s = time.perf_counter() - t0
+    train_msgs, _ = make_messages(GRU_CONFIG["data_use_training"], anomaly_rate=0.0)
+    detect_msgs, anomalies = make_messages(GRU_DETECT, anomaly_rate=0.01, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: launch counts 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    assert det.process_batch(train_msgs) == []   # sync fit at the boundary
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_variants = Counter(scorehead.candidate_lse.variants)
+    alerts, detect_s = _stream(det, detect_msgs, GRU_CALL)
+    counts = read_launches()
+    variants = read_variants()["candidate_lse"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    device_batches = det.path_counts["device"]
+    if device_batches != GRU_DETECT // GRU_CALL or det.path_counts["host"]:
+        raise AssertionError(f"unexpected dispatch paths {det.path_counts}")
+    expected = gru_expected_launches(device_batches)
+    if expected["train_steps"] != 108 or expected["calibration_chunks"] != 4:
+        raise AssertionError(f"the GRU fit is not 108 steps and 4 calibration chunks: "
+                             f"{expected}")
+    if counts != {"candidate_lse": expected["candidate_lse"], "flash_forward": 0,
+                  "flash_dq": 0, "flash_dkv": 0}:
+        raise AssertionError(f"the GRU path launched {counts}, expected {expected}")
+    detect_variants = Counter(variants) - fit_variants
+    check_head_variants(fit_variants, "wgmma_tma_d128_", expected["calibration_chunks"],
+                        "GRU calibration")
+    check_head_variants(detect_variants, "wgmma_tma_d128_", device_batches, "GRU detect")
+    threshold = det._threshold
+    if not np.isfinite(threshold):
+        raise AssertionError(f"threshold {threshold} is not finite")
+    by_id = _alerts_by_id(alerts, threshold)
+    recall = len(anomalies & set(by_id)) / max(1, len(anomalies))
+
+    # the same stream through the einsum head on the same fitted weights and
+    # position-norm statistics
+    ein = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": dict(
+        GRU_CONFIG, head_impl="einsum", data_use_training=0, score_threshold=threshold)}})
+    ein.load_params(det._model.state_dict())
+    ein._set_norm(det._norm_mu, det._norm_sigma)
+    ein_alerts, ein_s = _stream(ein, detect_msgs, GRU_CALL)
+    if read_launches() != counts:
+        raise AssertionError("the einsum head launched a kernel")
+    ein_by_id = _alerts_by_id(ein_alerts, threshold)
+    flips, near = _flips(by_id, ein_by_id, ein, detect_msgs, threshold, GRU_CALL)
+
+    # device time of one detect batch of real tokens, and of the recurrence
+    # with its embeddings and LayerNorm alone (CUDA events; the host's
+    # launch gaps inside the pair count)
+    tokens, _ = det._featurize_raw_batch(detect_msgs[:GRU_CALL])
+    batch_ms = time_ms(lambda: det._score_dev(tokens), reps=10)
+    wide = torch.from_numpy(tokens).to(device).long()
+    with torch.no_grad():
+        hidden_ms = time_ms(lambda: det._model.hidden(wide), reps=10)
+
+    # a small fp32 input: the fused head's CUDA-core kernel and the GRU on
+    # the card against the plain versions on the host, same weights
+    scorer = type(det._scorer)(dataclasses.replace(det._scorer.config, dtype=torch.float32))
+    model_dev = scorer.clone_model(det._model, torch.device(device))
+    model_cpu = scorer.clone_model(det._model, torch.device("cpu"))
+    tokens, _ = det._featurize_raw_batch(detect_msgs[:64])
+    got = scorer.score(model_dev, torch.from_numpy(tokens).to(device)).cpu()
+    want = scorer.score(model_cpu, torch.from_numpy(tokens))
+    small_err = (got - want).abs().max().item()
+    if got.shape != (64,) or not torch.isfinite(got).all() or \
+            not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"fp32 GRU scores on the card disagree with the host: {small_err}")
+
+    result = dict(
+        setup_s=setup_s, fit_s=fit_s, detect_s=detect_s, einsum_detect_s=ein_s,
+        lines_per_s=GRU_DETECT / detect_s, n_detect=GRU_DETECT, call_size=GRU_CALL,
+        batch_ms=batch_ms, hidden_ms=hidden_ms,
+        threshold=threshold, alerts=len(by_id), anomalies=len(anomalies), recall=recall,
+        precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
+        launch_counts=counts, expected_launches=expected,
+        variants=variants, calibration_variants=dict(fit_variants),
+        detect_variants=dict(detect_variants),
+        device_batches=device_batches, einsum_alerts=len(ein_by_id),
+        decision_flips=len(flips), flip_distances=near, small_fp32_max_abs_err=small_err,
+        peak_mem_gib=peak_gib)
+    emit("gru_detector", **result)
+    return result, det
+
+
+def int8_expected_launches(device_batches: int) -> dict:
+    """What the int8w MLP path launches: the fused head (N = 32) in every
+    calibration chunk, twice over the parity corpus (float path, then int8
+    path), and in every device batch (N = 4096)."""
+    bs = 32
+    calib = -(-INT8_CONFIG["data_use_training"] // bs)
+    parity = 2 * -(-min(512, INT8_CONFIG["data_use_training"]) // bs)
+    return {"candidate_lse": calib + parity + device_batches, "calibration_chunks": calib,
+            "parity_chunks": parity, "device_batches": device_batches}
+
+
+def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
+    det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": INT8_CONFIG}})
+    det.setup_io()
+    train_msgs, _ = make_messages(INT8_CONFIG["data_use_training"], anomaly_rate=0.0)
+    detect_msgs, anomalies = make_messages(N_DETECT, anomaly_rate=0.01, seed=1)
+
+    # the main path: launch counts 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    assert det.process_batch(train_msgs) == []   # sync fit, then the gate
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_variants = Counter(scorehead.candidate_lse.variants)
+    alerts, detect_s = _stream(det, detect_msgs, CALL_SIZE)
+    counts = read_launches()
+    variants = read_variants()["candidate_lse"]
+
+    report = det._int8_report
+    emit("int8_gate", **report)
+    if not (report["activated"] and report["gated"] and report["flips"] == 0
+            and report["rows"] == 512):
+        raise AssertionError(f"the int8 gate did not install at zero flips: {report}")
+    if det._scorer.config.dtype != torch.bfloat16 or det._qmodel is None:
+        raise AssertionError("the int8w detector is not serving its bf16 int8 copy")
+    device_batches = det.path_counts["device"]
+    if device_batches != N_DETECT // CALL_SIZE or det.path_counts["host"]:
+        raise AssertionError(f"unexpected dispatch paths {det.path_counts}")
+    expected = int8_expected_launches(device_batches)
+    if counts["candidate_lse"] != expected["candidate_lse"] or \
+            counts["flash_forward"] or counts["flash_dq"] or counts["flash_dkv"]:
+        raise AssertionError(f"the int8w path launched {counts}, expected {expected}")
+    check_head_variants(fit_variants, "wgmma_tma_d128_",
+                        expected["calibration_chunks"] + expected["parity_chunks"],
+                        "int8w calibration and parity")
+    check_head_variants(Counter(variants) - fit_variants, "wgmma_tma_d128_", device_batches,
+                        "int8w detect")
+    threshold = det._threshold
+    by_id = _alerts_by_id(alerts, threshold)
+    recall = len(anomalies & set(by_id)) / max(1, len(anomalies))
+
+    # the same stream through the bf16 detector on the same fitted weights
+    bf16 = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": dict(
+        SCORER_CONFIG, data_use_training=0, score_threshold=threshold)}})
+    bf16.load_params(det._model.state_dict())
+    bf16_alerts, _ = _stream(bf16, detect_msgs, CALL_SIZE)
+    bf16_by_id = _alerts_by_id(bf16_alerts, threshold)
+    flips, near = _flips(by_id, bf16_by_id, bf16, detect_msgs, threshold, CALL_SIZE)
+
+    # device time of one detect batch through the int8 copy and through the
+    # float weights, in turns (int8, float, float, int8)
+    tokens, _ = det._featurize_raw_batch(detect_msgs[:CALL_SIZE])
+    qmodel = det._qmodel
+    batch_ms = {"int8": [], "float": []}
+    for path in ("int8", "float", "float", "int8"):
+        det._qmodel = qmodel if path == "int8" else None
+        batch_ms[path].append(time_ms(lambda: det._score_dev(tokens), reps=10))
+    det._qmodel = qmodel
+
+    result = dict(
+        fit_s=fit_s, detect_s=detect_s, lines_per_s=N_DETECT / detect_s,
+        bf16_lines_per_s=bf16_lines_per_s, n_detect=N_DETECT, call_size=CALL_SIZE,
+        batch_ms=batch_ms, threshold=threshold, alerts=len(by_id), anomalies=len(anomalies), recall=recall,
+        gate=report, quant_bytes=report["bytes"], launches=counts["candidate_lse"],
+        expected_launches=expected, variants=variants,
+        bf16_alerts=len(bf16_by_id), decision_flips=len(flips), flip_distances=near)
+    emit("int8_detector", **result)
+    if recall < 0.9:
+        raise AssertionError(f"int8w recall on the injected anomalies is {recall}")
+    return result, det
+
+
+def phase_checkpoints(detectors: dict) -> dict:
+    """Each fitted detector saved, then restored into a fresh detector of
+    its configuration: one batch of 4096 must score bit-equal, the
+    threshold must be equal, and an int8w restore re-activates ungated."""
+    configs = {"gru": GRU_CONFIG, "int8w_mlp": INT8_CONFIG}
+    msgs, _ = make_messages(4096, anomaly_rate=0.01, seed=2)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="dm_ckpt_") as tmp:
+        for label, det in detectors.items():
+            path = str(Path(tmp) / label)
+            t0 = time.perf_counter()
+            det.save_checkpoint(path)
+            save_s = time.perf_counter() - t0
+            fresh = TorchScorerDetector(config={"detectors": {
+                "TorchScorerDetector": configs[label]}})
+            t0 = time.perf_counter()
+            fresh.load_checkpoint(path)
+            load_s = time.perf_counter() - t0
+            tokens, ok = det._featurize_raw_batch(msgs)
+            assert ok.all()
+            want, got = det.score_tokens(tokens), fresh.score_tokens(tokens)
+            row = dict(save_s=save_s, load_s=load_s,
+                       bytes=sum(f.stat().st_size for f in Path(path).iterdir()),
+                       bit_equal=bool(np.array_equal(got, want)),
+                       max_abs_diff=float(np.abs(got - want).max()),
+                       threshold=fresh._threshold,
+                       threshold_equal=fresh._threshold == det._threshold,
+                       int8=fresh._int8_report)
+            emit("checkpoint", label=label, **row)
+            if not (row["bit_equal"] and row["threshold_equal"] and fresh._fitted):
+                raise AssertionError(f"the {label} checkpoint did not restore: {row}")
+            if label == "int8w_mlp" and not (fresh._int8_report["activated"]
+                                             and fresh._int8_report["gated"] is False):
+                raise AssertionError(f"the int8w restore reported {fresh._int8_report}")
+            results[label] = row
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -885,15 +1141,23 @@ def main() -> int:
     mlp = phase_detector()
     torch.cuda.empty_cache()
     logbert = phase_logbert_detector()
+    torch.cuda.empty_cache()
+    gru, gru_det = phase_gru_detector()
+    torch.cuda.empty_cache()
+    int8, int8_det = phase_int8_detector(mlp["lines_per_s"])
+    phase_checkpoints({"gru": gru_det, "int8w_mlp": int8_det})
     mlp_row = lse_times[(CALL_SIZE, 128)]
     kernels = [{
         "name": "candidate_lse",
         "route": "cuda",
         "source": "detectmateservice_tpu_torch/ops/csrc/scorehead.cu",
         "replaces": "detectmateservice_tpu/ops/scorehead.py:55",
-        "launches": mlp["launches"] + logbert["launch_counts"]["candidate_lse"],
+        "launches": (mlp["launches"] + logbert["launch_counts"]["candidate_lse"]
+                     + gru["launch_counts"]["candidate_lse"] + int8["launches"]),
         "launches_by_path": {"mlp": mlp["launches"],
-                             "logbert": logbert["launch_counts"]["candidate_lse"]},
+                             "logbert": logbert["launch_counts"]["candidate_lse"],
+                             "gru": gru["launch_counts"]["candidate_lse"],
+                             "int8w_mlp": int8["launches"]},
         "max_abs_err": lse_err,
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
@@ -904,7 +1168,9 @@ def main() -> int:
         "variant": mlp_row["variant"],
         "bound_share": mlp_row["bound_share"],
         "launches_by_variant": {"mlp": mlp["variants"],
-                                "logbert": logbert["variants"]["candidate_lse"]},
+                                "logbert": logbert["variants"]["candidate_lse"],
+                                "gru": gru["variants"],
+                                "int8w_mlp": int8["variants"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],
@@ -912,6 +1178,8 @@ def main() -> int:
         "logbert_detect_shape": dict(shape=[524288, 32768, 256],
                                      **lse_times[(524288, 256)]),
         "mlp_calibration_shape": dict(shape=[32, 32768, 128], **lse_times[(32, 128)]),
+        "gru_detect_shape": dict(shape=[131072, 32768, 128], **lse_times[(131072, 128)]),
+        "gru_calibration_shape": dict(shape=[1024, 32768, 128], **lse_times[(1024, 128)]),
     }]
     replaces = {"forward": "detectmateservice_tpu/ops/flash.py:64",
                 "dq": "detectmateservice_tpu/ops/flash.py:221",

@@ -1,9 +1,9 @@
 """TorchScorerDetector: GPU-batched neural anomaly scoring.
 
 Counterpart of ``detectmateservice_tpu/library/detectors/jax_scorer.py``
-(``JaxScorerDetector``) on PyTorch and CUDA, for the ``mlp`` and ``logbert``
-scorers. The same CoreDetector contract (train-then-detect, alert-or-None
-per message) and the same phases:
+(``JaxScorerDetector``) on PyTorch and CUDA, for the ``mlp``, ``gru`` and
+``logbert`` scorers. The same CoreDetector contract (train-then-detect,
+alert-or-None per message) and the same phases:
 
 1. **train** — the first ``data_use_training`` messages are tokenized and
    buffered (filtered from the output),
@@ -27,12 +27,20 @@ Batches of at most ``host_score_max_batch`` rows score on a CPU copy of the
 module through the einsum head, as the JAX detector's host twin does; a
 logbert whose attention can take the flash kernels has no such copy.
 
+``dtype: int8w`` serves weight-only int8 (``models/quant.py``) as the JAX
+detector does: activations in bf16 on CUDA and fp32 on the CPU; at the end
+of each fit the weights are quantized, the calibration split's first 512
+rows (the parity corpus) are scored through the float and the quantized
+path, and the quantized path serves only if no alert decision flips
+(``_int8_report`` says what the gate found). ``save_checkpoint`` and
+``load_checkpoint`` persist the float weights, the optimizer state and the
+calibration (``utils/checkpoint.py``); a restore re-quantizes ungated.
+
 Options of the JAX detector that later slices port raise ``LibraryError``
-when set away from their defaults: ``model: gru``, ``attn_impl: ring``,
-``dtype: int8w``, ``mesh_shape``, ``batch_deadline_ms > 0``,
-``upload_workers > 0``, ``featurize_threads > 0``. ``native_featurize`` is
-accepted; featurization runs in Python here (rows identical to the native
-featurizer's).
+when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``,
+``batch_deadline_ms > 0``, ``upload_workers > 0``, ``featurize_threads >
+0``. ``native_featurize`` is accepted; featurization runs in Python here
+(rows identical to the native featurizer's).
 """
 from __future__ import annotations
 
@@ -45,13 +53,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...models import quant
 from ...models.base import ScorerBase
+from ...models.gru import GRUScorer, GRUScorerConfig
 from ...models.logbert import LogBERTConfig, LogBERTScorer
 from ...models.mlp import MLPScorer, MLPScorerConfig
 from ...models.tokenizer import PAD_ID, HashTokenizer, narrow_tokens
 from ...ops import flash, scorehead
 from ...ops.attention import FLASH_MIN_SEQ
 from ...schemas import DetectorSchema, ParserSchema, SchemaError
+from ...utils.checkpoint import (COMPATIBLE_TREE_VERSIONS, MODEL_TREE_VERSIONS,
+                                 load_scorer_state, save_scorer_state)
 from ...utils.device import resolve_device
 from ..common.core import LibraryError
 from ..common.detector import BufferMode, CoreDetector, CoreDetectorConfig
@@ -105,7 +117,7 @@ class TorchScorerDetectorConfig(CoreDetectorConfig):
     host_score_max_batch: int = 128
     device: Optional[str] = None          # None = "cuda:0"; "cuda:N" | "cpu"
     mesh_shape: Optional[Dict[str, int]] = None  # multi-device: a later slice
-    dtype: str = "auto"                   # "auto" = bfloat16
+    dtype: str = "auto"                   # "auto" = bfloat16; "int8w" = int8 weights
     seed: int = 0
 
 
@@ -184,6 +196,12 @@ class TorchScorerDetector(CoreDetector):
         # scored batches by path ("device" / "host"), for callers that check
         # which path a stream took
         self.path_counts: Dict[str, int] = {"device": 0, "host": 0}
+        # weight-only int8 serving (dtype: int8w): the dequantized serving
+        # copy of the model, live only after the parity gate passed
+        self._int8w = self.config.dtype == "int8w"
+        self._qmodel: Optional[torch.nn.Module] = None
+        self._parity_corpus: Optional[np.ndarray] = None
+        self._int8_report: Optional[Dict[str, Any]] = None
 
     def _validate_static_config(self) -> None:
         """Reject bad or not-yet-ported config at construction."""
@@ -217,10 +235,8 @@ class TorchScorerDetector(CoreDetector):
                 "bucket_retire_interval_s must be >= 0 "
                 f"(got {cfg.bucket_retire_interval_s})")
         later = {
-            "model": (cfg.model == "gru", "the gru slice"),
             "attn_impl": (cfg.model == "logbert" and cfg.attn_impl == "ring",
                           "the multi-GPU slice"),
-            "dtype": (cfg.dtype == "int8w", "the int8w slice"),
             "mesh_shape": (cfg.mesh_shape is not None, "the multi-GPU slice"),
             "batch_deadline_ms": (cfg.batch_deadline_ms > 0,
                                   "the coalescer slice"),
@@ -261,7 +277,7 @@ class TorchScorerDetector(CoreDetector):
                 scorehead.build_kernel()
             if self._flash_reachable():
                 flash.build_kernel()
-        scorer = self._build_scorer()
+        scorer = self._build_scorer(device)
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         self._model = scorer.init_model(device, generator)
         self._optimizer = scorer.make_optimizer(self._model)
@@ -274,10 +290,20 @@ class TorchScorerDetector(CoreDetector):
                 dataclasses.replace(scorer.config, head_impl="einsum"))
         self._scorer = scorer
 
-    def _build_scorer(self) -> ScorerBase:
-        """The scorer the config names, as ``jax_scorer.py`` builds it."""
+    def _build_scorer(self, device: torch.device) -> ScorerBase:
+        """The scorer the config names, as ``jax_scorer.py`` builds it.
+        ``int8w`` computes in the device's fast float: bf16 on CUDA, fp32 on
+        the CPU."""
         cfg = self.config
-        dtype = _DTYPES[cfg.dtype]
+        if self._int8w:
+            dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+        else:
+            dtype = _DTYPES[cfg.dtype]
+        if cfg.model == "gru":
+            return GRUScorer(GRUScorerConfig(
+                vocab_size=cfg.vocab_size, dim=cfg.dim, depth=cfg.depth,
+                seq_len=cfg.seq_len, score_topk=cfg.score_topk,
+                score_vocab=cfg.score_vocab, head_impl=cfg.head_impl, dtype=dtype))
         if cfg.model == "logbert":
             return LogBERTScorer(LogBERTConfig(
                 vocab_size=cfg.vocab_size, dim=cfg.dim, depth=cfg.depth,
@@ -312,13 +338,22 @@ class TorchScorerDetector(CoreDetector):
         self._optimizer = self._scorer.make_optimizer(self._model)
 
     def _sync_host_params(self) -> None:
-        """Mirror the current weights into the CPU copy (after fit)."""
+        """Mirror the current (float) weights and norm statistics into the
+        CPU copy (after a fit or a checkpoint load)."""
         if self._host_scorer is None or self._model is None:
             return
         self._host_model = self._host_scorer.clone_model(self._model, torch.device("cpu"))
-        if self._norm_mu is not None:
-            self._host_norm = (torch.from_numpy(self._norm_mu),
-                               torch.from_numpy(self._norm_sigma))
+        self._host_norm = (None if self._norm_mu is None else
+                           (torch.from_numpy(self._norm_mu),
+                            torch.from_numpy(self._norm_sigma)))
+
+    def _set_norm(self, mu: Optional[np.ndarray], sigma: Optional[np.ndarray]) -> None:
+        """Install (or clear, with None) the position-norm statistics, on
+        the host and on the device."""
+        self._norm_mu, self._norm_sigma = mu, sigma
+        self._norm_dev = (None if mu is None else
+                          (torch.from_numpy(mu).to(self._device),
+                           torch.from_numpy(sigma).to(self._device)))
 
     def _put(self, array: np.ndarray) -> torch.Tensor:
         """Upload a token batch in the narrow wire format (uint16 ids as
@@ -335,11 +370,13 @@ class TorchScorerDetector(CoreDetector):
 
     def _score_dev(self, tokens: np.ndarray) -> torch.Tensor:
         """Queue scoring of [n, S] tokens on the device; returns the device
-        tensor without waiting for it (positional z-scores once calibrated)."""
+        tensor without waiting for it (positional z-scores once calibrated).
+        The int8 serving copy scores while it is live."""
+        model = self._qmodel if self._qmodel is not None else self._model
         if self._norm_dev is not None:
             mu, sigma = self._norm_dev
-            return self._scorer.normscore(self._model, self._put(tokens), mu, sigma)
-        return self._scorer.score(self._model, self._put(tokens))
+            return self._scorer.normscore(model, self._put(tokens), mu, sigma)
+        return self._scorer.score(model, self._put(tokens))
 
     def _token_nlls_dev(self, tokens: np.ndarray) -> torch.Tensor:
         return self._scorer.token_nlls(self._model, self._put(tokens))
@@ -376,10 +413,7 @@ class TorchScorerDetector(CoreDetector):
         # sigma floor: a near-constant position stays sensitive to unseen
         # values without the z-score exploding on float jitter
         sigma = np.maximum(np.sqrt(var), 0.05)
-        self._norm_mu = mu.astype(np.float32)
-        self._norm_sigma = sigma.astype(np.float32)
-        self._norm_dev = (torch.from_numpy(self._norm_mu).to(self._device),
-                          torch.from_numpy(self._norm_sigma).to(self._device))
+        self._set_norm(mu.astype(np.float32), sigma.astype(np.float32))
         z = (nlls - mu) / sigma
         z = np.where(mask > 0, z, -np.inf)
         zmax = z.max(-1)
@@ -443,6 +477,10 @@ class TorchScorerDetector(CoreDetector):
             return {"loss": float("nan"), "threshold": self._threshold}
         data = np.stack(self._train_buffer)
         self._train_buffer = []
+        if self._int8w:
+            # training updates the float weights; the previous quantized copy
+            # must not serve (or calibrate) stale scores mid-fit
+            self._qmodel = None
         bs = min(cfg.train_batch_size, len(data))
         loss = float("nan")
         rng = np.random.default_rng(cfg.seed)
@@ -468,9 +506,57 @@ class TorchScorerDetector(CoreDetector):
         self._calib_stats = (float(scores.mean()), float(scores.std()))
         if self._threshold is None:
             self._threshold = float(scores.mean() + cfg.threshold_sigma * scores.std())
+        if self._int8w:
+            # the calibration split is the parity corpus: the scores the
+            # threshold was calibrated on are the decisions int8 must keep
+            self._parity_corpus = np.asarray(calib[:512], np.int32)
+            self._activate_int8(where="fit")
         self._fitted = True
         self._sync_host_params()
         return {"loss": loss, "threshold": self._threshold}
+
+    # -- weight-only int8 serving (dtype: int8w) -------------------------
+    def _parity_scores(self, tokens: np.ndarray) -> np.ndarray:
+        """Served-path scores of the parity corpus, in chunks of the train
+        bucket."""
+        return self._run_chunked(self._score_dev, tokens,
+                                 _bucket(self.config.train_batch_size, self.config.max_batch))
+
+    def _activate_int8(self, where: str = "fit") -> Dict[str, Any]:
+        """Quantize the live weights and cut serving over to their
+        dequantized copy, gated on differential parity: the quantized path
+        must flip no alert decision on the parity corpus against the path
+        serving now, or that path stays live. Without a corpus (a restore
+        before any fit) the copy installs ungated."""
+        report: Dict[str, Any] = {"activated": False, "where": where,
+                                  "rows": 0, "flips": 0, "flip_ratio": 0.0}
+        threshold = float(self._threshold) if self._threshold is not None else float("inf")
+        corpus = self._parity_corpus
+        qstate = quant.quantize(self._model.state_dict(),
+                                quant.linear_weight_keys(self._model))
+        float_scores = None
+        if corpus is not None and len(corpus):
+            float_scores = self._parity_scores(corpus)
+        # tentative install (dequantized once, here), then judge the q path
+        # on the same corpus
+        qmodel = self._scorer.clone_model(self._model, self._device)
+        qmodel.load_state_dict(quant.dequantize(qstate, self._scorer.config.dtype))
+        self._qmodel = qmodel
+        ok = True
+        if float_scores is not None:
+            q_scores = self._parity_scores(corpus)
+            flips = int(np.sum((float_scores > threshold) != (q_scores > threshold)))
+            report.update(rows=int(len(float_scores)), flips=flips,
+                          flip_ratio=float(flips) / max(1, len(float_scores)))
+            ok = flips == 0
+        if not ok:
+            self._qmodel = None  # parity broke: the quantized copy never serves
+        else:
+            report["activated"] = True
+            report["gated"] = float_scores is not None
+            report["bytes"] = quant.quant_stats(qstate)
+        self._int8_report = report
+        return report
 
     # -- scoring --------------------------------------------------------
     def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
@@ -690,3 +776,88 @@ class TorchScorerDetector(CoreDetector):
         else:
             logger.warning("reconfigure: no stored calibration stats; threshold stays %r",
                            self._threshold)
+
+    # -- state checkpointing --------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The detector state ``meta.json`` carries, key for key the JAX
+        detector's."""
+        state = {
+            "trained": self._trained,
+            "threshold": self._threshold,
+            "fitted": self._fitted,
+            "calib_stats": None if self._calib_stats is None else list(self._calib_stats),
+            "norm_mu": None if self._norm_mu is None else self._norm_mu.tolist(),
+            "norm_sigma": None if self._norm_sigma is None else self._norm_sigma.tolist(),
+        }
+        # the candidate-vocab subset is persisted and reused verbatim: numpy's
+        # Generator stream is not promised stable across numpy versions
+        cand = getattr(self._scorer, "_cand_cache", None)
+        if cand is not None:
+            state["cand_key"] = list(cand[0])
+            state["cand_ids"] = cand[1].tolist()
+        return state
+
+    def save_checkpoint(self, directory: str) -> None:
+        """Persist the float weights, the optimizer state and
+        ``state_dict()`` (``utils/checkpoint.py``)."""
+        self._ensure_scorer()
+        # a boundary fit mutates weights and threshold concurrently: land it
+        # first so the checkpoint is a consistent post-fit snapshot
+        self._finish_fit(wait=True)
+        save_scorer_state(directory, self._model.state_dict(), self._optimizer.state_dict(),
+                          self.state_dict(),
+                          tree_version=MODEL_TREE_VERSIONS.get(self.config.model, 1))
+
+    def load_checkpoint(self, directory: str) -> None:
+        """Restore a ``save_checkpoint`` directory, branch for branch as the
+        JAX detector restores its own."""
+        self._ensure_scorer()
+        params, opt_state, meta = load_scorer_state(
+            directory, map_location=self._device,
+            accepted_tree_versions=COMPATIBLE_TREE_VERSIONS.get(self.config.model, {1}))
+        self._model.load_state_dict(params)
+        self._optimizer.load_state_dict(opt_state)
+        self._trained = int(meta.get("trained", 0))
+        self._fitted = bool(meta.get("fitted", False))
+        cand_key, cand_ids = meta.get("cand_key"), meta.get("cand_ids")
+        if cand_key is not None and cand_ids is not None:
+            # reuse the checkpointed subset verbatim, on the host copy too
+            cache = (tuple(cand_key), np.asarray(cand_ids, np.int32))
+            self._scorer._cand_cache = cache
+            if self._host_scorer is not None:
+                self._host_scorer._cand_cache = cache
+        stats = meta.get("calib_stats")
+        self._calib_stats = None if stats is None else (float(stats[0]), float(stats[1]))
+        mu, sigma = meta.get("norm_mu"), meta.get("norm_sigma")
+        # the checkpointed threshold is in the units it was calibrated in
+        # (z-scores with norm statistics, raw NLL without): across a
+        # norm-mode change it is discarded (fail open) unless config overrides
+        norm_mismatch = (mu is not None) != (self.config.score_norm == "position")
+        if self.config.score_norm == "position":
+            self._set_norm(None if mu is None else np.asarray(mu, np.float32),
+                           None if sigma is None else np.asarray(sigma, np.float32))
+        else:
+            self._set_norm(None, None)
+        if self.config.score_threshold is not None:
+            self._threshold = self.config.score_threshold
+        else:
+            thr = meta.get("threshold")
+            if thr is not None and norm_mismatch:
+                logger.warning(
+                    "checkpoint norm calibration (%s) does not match config "
+                    "score_norm=%r: discarding the checkpointed threshold "
+                    "(alerts disabled until reconfigured or refitted)",
+                    "present" if mu is not None else "absent", self.config.score_norm)
+                self._threshold = float("inf")
+            elif thr is not None:
+                self._threshold = float(thr)
+            elif self._fitted:
+                self._threshold = float("inf")
+            else:
+                # unfitted checkpoint: the next fit recalibrates
+                self._threshold = None
+        if self._int8w and self._fitted:
+            # re-quantize from the restored float weights (int8 is a serving
+            # representation); without a parity corpus the install is ungated
+            self._activate_int8(where="restore")
+        self._sync_host_params()

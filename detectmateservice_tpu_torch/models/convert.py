@@ -1,5 +1,6 @@
 """Weight bridge between the JAX package's flax param trees and the port's
-``state_dict``s, through numpy, for the ``mlp`` and ``logbert`` families.
+``state_dict``s, through numpy, for the ``mlp``, ``gru`` and ``logbert``
+families.
 
 ``mlp`` (``EmbedMLPModel``):
 
@@ -16,7 +17,16 @@
   ``kernel`` transposed into ``weight``;
 * ``final_ln`` → ``final_ln`` as a LayerNorm.
 
-The family comes from the keys (``pos_embed`` only in logbert) unless given.
+``gru`` (``GRULM``):
+
+* ``tok_embed/embedding`` → ``tok_embed.weight``; ``bos_embed`` as is;
+* ``rnns_{i}/cell/{ir, iz, in, hr, hz, hn}`` → ``rnns.{i}.{same}``,
+  ``kernel`` transposed into ``weight``; ``bias`` where flax has one (not
+  ``hr``, ``hz``);
+* ``final_ln`` → ``final_ln`` as a LayerNorm.
+
+The family comes from the keys (``pos_embed`` only in logbert, ``bos_embed``
+only in gru) unless given.
 Both directions copy, so the result never aliases its input.
 """
 from __future__ import annotations
@@ -30,7 +40,8 @@ import torch
 _MLP_DENSE = (("Dense_0", "fc1"), ("Dense_1", "fc2"))
 _LOGBERT_DENSE = ("qkv", "proj", "mlp_in", "mlp_out")
 _LOGBERT_NORM = (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2"))
-FAMILIES = ("mlp", "logbert")
+_GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
+FAMILIES = ("mlp", "gru", "logbert")
 
 
 def _tensor(value: Any, transpose: bool = False) -> torch.Tensor:
@@ -43,7 +54,9 @@ def _family(keys, given: Optional[str]) -> str:
         if given not in FAMILIES:
             raise ValueError(f"unknown model family {given!r}; expected one of {FAMILIES}")
         return given
-    return "logbert" if "pos_embed" in keys else "mlp"
+    if "pos_embed" in keys:
+        return "logbert"
+    return "gru" if "bos_embed" in keys else "mlp"
 
 
 def params_from_flax(tree: Mapping[str, Any],
@@ -52,10 +65,24 @@ def params_from_flax(tree: Mapping[str, Any],
     ``"params"`` key) → the port's ``state_dict``."""
     p = tree["params"] if "params" in tree else tree
     out = {"tok_embed.weight": _tensor(p["tok_embed"]["embedding"])}
-    if _family(p, family) == "mlp":
+    family = _family(p, family)
+    if family == "mlp":
         for flax_name, torch_name in _MLP_DENSE:
             out[f"{torch_name}.weight"] = _tensor(p[flax_name]["kernel"], transpose=True)
             out[f"{torch_name}.bias"] = _tensor(p[flax_name]["bias"])
+        return out
+    if family == "gru":
+        out["bos_embed"] = _tensor(p["bos_embed"])
+        depth = sum(1 for key in p if re.fullmatch(r"rnns_\d+", key))
+        for i in range(depth):
+            cell = p[f"rnns_{i}"]["cell"]
+            for gate in _GRU_GATES:
+                out[f"rnns.{i}.{gate}.weight"] = _tensor(cell[gate]["kernel"],
+                                                         transpose=True)
+                if "bias" in cell[gate]:
+                    out[f"rnns.{i}.{gate}.bias"] = _tensor(cell[gate]["bias"])
+        out["final_ln.weight"] = _tensor(p["final_ln"]["scale"])
+        out["final_ln.bias"] = _tensor(p["final_ln"]["bias"])
         return out
     out["pos_embed"] = _tensor(p["pos_embed"])
     depth = sum(1 for key in p if re.fullmatch(r"blocks_\d+", key))
@@ -80,10 +107,23 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor],
         return np.ascontiguousarray(value.T) if transpose else value.copy()
 
     params: Dict[str, Any] = {"tok_embed": {"embedding": arr("tok_embed.weight")}}
-    if _family(state_dict, family) == "mlp":
+    family = _family(state_dict, family)
+    if family == "mlp":
         for flax_name, torch_name in _MLP_DENSE:
             params[flax_name] = {"kernel": arr(f"{torch_name}.weight", transpose=True),
                                  "bias": arr(f"{torch_name}.bias")}
+        return {"params": params}
+    if family == "gru":
+        params["bos_embed"] = arr("bos_embed")
+        depth = sum(1 for key in state_dict if re.fullmatch(r"rnns\.\d+\.ir\.weight", key))
+        for i in range(depth):
+            cell: Dict[str, Any] = {}
+            for gate in _GRU_GATES:
+                cell[gate] = {"kernel": arr(f"rnns.{i}.{gate}.weight", transpose=True)}
+                if f"rnns.{i}.{gate}.bias" in state_dict:
+                    cell[gate]["bias"] = arr(f"rnns.{i}.{gate}.bias")
+            params[f"rnns_{i}"] = {"cell": cell}
+        params["final_ln"] = {"scale": arr("final_ln.weight"), "bias": arr("final_ln.bias")}
         return {"params": params}
     params["pos_embed"] = arr("pos_embed")
     depth = sum(1 for key in state_dict if re.fullmatch(r"blocks\.\d+\.ln1\.weight", key))

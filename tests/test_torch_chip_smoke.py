@@ -207,3 +207,50 @@ def test_head_variant_check_wants_every_launch_at_the_paths_width():
                                ({"wgmma_tma_d256_split1": 32}, 32)):
         with pytest.raises(AssertionError, match="fused-head launches"):
             chip_smoke.check_head_variants(variants, "wgmma_tma_d128_", launches, "MLP")
+
+
+def test_gru_launch_counts_follow_the_fit():
+    """512 messages with position norm: a held-out split of 102 rows (4
+    calibration chunks of 32 rows, N = 1,024 head rows each) and 410 train
+    rows in steps of 32 over max(4, ceil(100 / 12)) = 9 epochs: 108 steps,
+    which launch no kernel; 16 detect batches of N = 131,072 rows."""
+    want = chip_smoke.gru_expected_launches(device_batches=16)
+    assert want == {"candidate_lse": 4 + 16, "train_steps": 108, "calibration_chunks": 4,
+                    "calibration_rows": 1024, "detect_rows": 131072}
+    cfg = chip_smoke.GRU_CONFIG
+    assert (cfg["model"], cfg["head_impl"], cfg["score_norm"]) == ("gru", "pallas", "position")
+    assert (cfg["vocab_size"], cfg["dim"], cfg["depth"], cfg["seq_len"], cfg["max_batch"]) == \
+        (32768, 128, 1, 32, 4096)
+    assert chip_smoke.GRU_DETECT // chip_smoke.GRU_CALL == 16
+
+
+def test_gru_config_is_the_example_but_the_head():
+    """examples/gru_config.yaml's values, with head_impl pallas (and a
+    synchronous fit) the only additions."""
+    import yaml
+
+    example = yaml.safe_load((REPO / "examples" / "gru_config.yaml").read_text())
+    example = example["detectors"]["JaxScorerDetector"]
+    cfg = dict(chip_smoke.GRU_CONFIG)
+    for key, value in example.items():
+        if key != "method_type":
+            assert cfg.pop(key) == value, key
+    assert cfg == {"method_type": "torch_scorer", "vocab_size": 32768, "head_impl": "pallas",
+                   "dtype": "auto", "async_fit": False}
+
+
+def test_int8_launch_counts_and_config():
+    """Phase 7's configuration under int8w: 64 calibration chunks, the
+    512-row parity corpus scored twice in chunks of 32, 16 detect batches."""
+    want = chip_smoke.int8_expected_launches(device_batches=16)
+    assert want == {"candidate_lse": 64 + 32 + 16, "calibration_chunks": 64,
+                    "parity_chunks": 32, "device_batches": 16}
+    assert chip_smoke.INT8_CONFIG == dict(chip_smoke.SCORER_CONFIG, dtype="int8w")
+
+
+def test_gru_path_shapes_are_checked_and_timed():
+    cases = set(chip_smoke.LSE_CASES)
+    assert {(131072, 32768, 128, torch.bfloat16), (1024, 32768, 128, torch.bfloat16)} <= cases
+    assert {(131072, 128), (1024, 128)} <= set(chip_smoke.LSE_TIMED)
+    # the library yardstick runs the 8 GiB bf16 product in two chunks
+    assert len(chip_smoke.row_chunks(131072, chip_smoke.LSE_LIBRARY_ROWS)) == 2

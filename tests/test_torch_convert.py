@@ -110,7 +110,7 @@ def test_family_can_be_named():
     import pytest
 
     with pytest.raises(ValueError, match="family"):
-        params_from_flax(tree, family="gru")
+        params_from_flax(tree, family="rnn")
 
 
 def test_bridged_logbert_computes_the_flax_forward():

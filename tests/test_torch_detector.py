@@ -1,7 +1,10 @@
 """The port's ``TorchScorerDetector`` against the JAX package's
 ``JaxScorerDetector``: the same ParserSchema stream through both, from the
-same bridged initial weights, in fp32 on the CPU. Thresholds, alert
-decisions and alert fields must agree; the options later slices port must
+same bridged initial weights, in fp32 on the CPU, for the MLP, GRU, LogBERT
+and int8w MLP detectors. Thresholds, alert decisions and alert fields must
+agree (a decision may differ only within 1e-3 of a pinned threshold); the
+int8 parity gate must install, keep decisions and refuse a corrupted
+quantization as the JAX gate does; the options later slices port must
 raise; and the port must import nothing of JAX or the JAX package."""
 import subprocess
 import sys
@@ -303,11 +306,162 @@ def test_logbert_fit_trains(attn):
     assert "blocks.0.qkv.weight" in changed and "pos_embed" in changed
 
 
+GRU = dict(BASE, model="gru", depth=1, score_norm="position")
+
+
+@pytest.fixture(scope="module")
+def gru_pair():
+    """The JAX and the port GRU detector (the fused head, position norm)
+    from the same initial weights, each through its own fit, then pinned to
+    the JAX detector's threshold and run over the same detect stream."""
+    jax_det, port_det = _pair(**GRU)
+    for det in (jax_det, port_det):
+        assert det.process_batch(STREAM[:N_TRAIN]) == []
+    fitted = (jax_det._threshold, port_det._threshold)
+    threshold = jax_det._threshold
+    jax_det.reconfigure(dict(GRU, method_type="jax_scorer", score_threshold=threshold))
+    port_det.reconfigure(dict(GRU, method_type="torch_scorer", device="cpu",
+                              score_threshold=threshold))
+    outs = [_run(det, stream=STREAM[N_TRAIN:], chunks=(0, *CHUNKS)) for det in (jax_det, port_det)]
+    return jax_det, port_det, fitted, threshold, outs
+
+
+class TestGRUAgainstJaxDetector:
+    def test_fitted_thresholds_and_norm_match(self, gru_pair):
+        jax_det, port_det, (jax_t, port_t), _, _ = gru_pair
+        assert np.isfinite(port_t)
+        np.testing.assert_allclose(port_t, jax_t, rtol=1e-3)
+        np.testing.assert_allclose(port_det._norm_mu, jax_det._norm_mu, rtol=1e-3, atol=1e-4)
+
+    def test_pinned_threshold_alert_decisions_identical(self, gru_pair):
+        """Zero flips farther than 1e-3 from the threshold (fp32)."""
+        jax_det, port_det, _, threshold, (jax_out, port_out) = gru_pair
+        jax_alerts = _by_log_id(jax_out, RefDetectorSchema)
+        port_alerts = _by_log_id(port_out, DetectorSchema)
+        assert jax_alerts and len(jax_alerts) < sum(CHUNKS)
+        scores = _ref_scores(jax_det)
+        for log_id in set(jax_alerts) ^ set(port_alerts):
+            assert abs(scores[log_id] - threshold) < 1e-3, log_id
+        for log_id in set(jax_alerts) & set(port_alerts):
+            np.testing.assert_allclose(port_alerts[log_id]["score"],
+                                       jax_alerts[log_id]["score"], rtol=1e-3)
+        assert port_det.path_counts["device"] > 0 and port_det.path_counts["host"] > 0
+
+
+INT8 = dict(BASE, dtype="int8w")
+
+
+@pytest.fixture(scope="module")
+def int8_pair():
+    """The JAX and the port int8w MLP detector (fp32 activations on the
+    CPU on both sides) from the same initial weights, each through its own
+    fit and parity gate, then pinned to the JAX detector's threshold."""
+    jax_det, port_det = _pair(**INT8)
+    for det in (jax_det, port_det):
+        assert det.process_batch(STREAM[:N_TRAIN]) == []
+    reports = (jax_det._int8_report, port_det._int8_report)
+    threshold = jax_det._threshold
+    jax_det.reconfigure(dict(INT8, method_type="jax_scorer", score_threshold=threshold))
+    port_det.reconfigure(dict(INT8, method_type="torch_scorer", device="cpu",
+                              score_threshold=threshold))
+    outs = [_run(det, stream=STREAM[N_TRAIN:], chunks=(0, *CHUNKS)) for det in (jax_det, port_det)]
+    return jax_det, port_det, reports, threshold, outs
+
+
+class TestInt8AgainstJaxDetector:
+    def test_both_gates_install_at_zero_flips(self, int8_pair):
+        jax_det, port_det, (jax_rep, port_rep), _, _ = int8_pair
+        assert port_det._scorer.config.dtype == torch.float32   # fp32 on the CPU
+        assert jax_rep["activated"] and port_rep["activated"]
+        assert port_rep["gated"] and port_rep["where"] == "fit"
+        assert port_rep["rows"] == jax_rep["rows"] == N_TRAIN
+        assert port_rep["flips"] == jax_rep["flips"] == 0
+        assert set(port_rep) == set(jax_rep)
+        assert port_rep["bytes"] == jax_rep["bytes"]
+
+    def test_pinned_threshold_alert_decisions_identical(self, int8_pair):
+        """Zero flips farther than 1e-3 from the threshold."""
+        jax_det, port_det, _, threshold, (jax_out, port_out) = int8_pair
+        assert port_det._qmodel is not None and jax_det._qparams is not None
+        jax_alerts = _by_log_id(jax_out, RefDetectorSchema)
+        port_alerts = _by_log_id(port_out, DetectorSchema)
+        assert jax_alerts and len(jax_alerts) < sum(CHUNKS)
+        scores = _ref_scores(jax_det)
+        for log_id in set(jax_alerts) ^ set(port_alerts):
+            assert abs(scores[log_id] - threshold) < 1e-3, log_id
+
+
+def _int8_detector():
+    """``tests/test_warmstart.py``'s int8 detector on the port: a real
+    calibrated threshold, so the gate judges decisions that can flip."""
+    det = TorchScorerDetector(config=dict(
+        BASE, method_type="torch_scorer", device="cpu", dtype="int8w",
+        data_use_training=32, train_epochs=1, min_train_steps=5, max_batch=32,
+        host_score_max_batch=0, threshold_sigma=4.0))
+    det.setup_io()
+    assert det.process_batch(STREAM[:32]) == []
+    det.flush_final()
+    return det
+
+
+class TestInt8Parity:
+    """The three gate cases of ``tests/test_warmstart.py::TestInt8Parity``."""
+
+    def test_int8_activates_with_zero_flips(self):
+        rep = _int8_detector()._int8_report
+        assert rep is not None and rep["activated"]
+        assert rep["gated"], "parity corpus missing: the gate never judged"
+        assert rep["rows"] > 0
+        assert rep["flips"] == 0 and rep["flip_ratio"] == 0.0
+        assert rep["bytes"]["int8_bytes"] > 0
+
+    def test_int8_decisions_match_float_path(self):
+        det = _int8_detector()
+        assert det._qmodel is not None
+        tokens = np.random.default_rng(11).integers(
+            0, 100, size=(det.config.max_batch, det.config.seq_len)).astype(np.int32)
+        q_scores = det.score_tokens(tokens)
+        qmodel, det._qmodel = det._qmodel, None
+        try:
+            f_scores = det.score_tokens(tokens)
+        finally:
+            det._qmodel = qmodel
+        assert np.all(np.isfinite(q_scores))
+        assert not np.array_equal(q_scores, f_scores)   # the int8 copy served
+        thr = det._threshold
+        assert np.array_equal(q_scores > thr, f_scores > thr)
+
+    def test_parity_gate_refuses_corrupt_quantization(self, monkeypatch):
+        from detectmateservice_tpu_torch.models import quant
+
+        det = _int8_detector()
+        assert det._int8_report["activated"]
+        real_quantize = quant.quantize
+
+        def corrupt_quantize(state, linear_keys):
+            return real_quantize({k: v * 0.0 for k, v in state.items()}, linear_keys)
+
+        monkeypatch.setattr(quant, "quantize", corrupt_quantize)
+        rep = det._activate_int8(where="test")
+        assert not rep["activated"]
+        assert rep["flips"] > 0
+        assert det._qmodel is None, "refused copy left installed"
+        scores = det.score_tokens(np.zeros((det.config.max_batch, det.config.seq_len), np.int32))
+        assert np.all(np.isfinite(scores))
+
+
+@pytest.mark.parametrize("field,value", [("model", "gru"), ("dtype", "int8w")])
+def test_gru_and_int8w_are_accepted(field, value):
+    det = TorchScorerDetector(config=dict(BASE, method_type="torch_scorer", device="cpu",
+                                          **{field: value}))
+    det.setup_io()
+    assert det._scorer.name == ("gru" if field == "model" else "mlp")
+    assert det.score_tokens(np.zeros((4, BASE["seq_len"]), np.int32)).shape == (4,)
+
+
 class TestNotYetPorted:
     @pytest.mark.parametrize("field,value,slice_name", [
-        ("model", "gru", "the gru slice"),
         ("attn_impl", "ring", "the multi-GPU slice"),
-        ("dtype", "int8w", "int8w"),
         ("mesh_shape", {"data": 1}, "multi-GPU"),
         ("batch_deadline_ms", 5.0, "coalescer"),
         ("upload_workers", 1, "upload-worker"),
@@ -378,6 +532,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.ops.flash\n"
         "import detectmateservice_tpu_torch.ops.attention\n"
         "import detectmateservice_tpu_torch.models.logbert\n"
+        "import detectmateservice_tpu_torch.models.gru\n"
+        "import detectmateservice_tpu_torch.models.quant\n"
+        "import detectmateservice_tpu_torch.utils.checkpoint\n"
         "import detectmateservice_tpu_torch.ops.cuda_build\n"
         "import detectmateservice_tpu_torch.models.convert\n"
         "import detectmateservice_tpu_torch.utils.device\n"
@@ -392,6 +549,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert bad == []
     assert "detectmateservice_tpu_torch.library.detectors.torch_scorer" in loaded
     assert "detectmateservice_tpu_torch.ops.flash" in loaded
+    assert "detectmateservice_tpu_torch.utils.checkpoint" in loaded
 
 
 def test_no_forbidden_import_statement_anywhere_in_the_port():
