@@ -33,6 +33,15 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    pallas``): fit on 2048 messages, then 65,536 messages in
    ``process_batch`` calls of 4096; the same stream through the einsum head
    on the same weights must give the same alert decisions;
+7b. the wire-frame path (``bench_torch.py``): the native featurizer's build
+   seconds (the host compiler, at phase 7's ``setup_io``), its rows held
+   bit-equal to the port's Python rows on phase 7's 65,536 messages as a
+   batch and packed into frames of 512, the featurize pass timed natively
+   and in Python, then
+   a fresh MLP detector through ``bench_torch.drive`` (fit, warm-up,
+   ``process_frames`` over those frames in calls of 32, the p50 of 64 lone
+   messages): its lines/s and p50, exact kernel 1 launches and variants,
+   recall >= 0.9 and no row featurized in Python;
 8. the LogBERT detector end to end at ``examples/seqparallel_config.yaml``'s
    widths on one card (vocab 32768, dim 256, depth 4, heads 4, seq_len 2048,
    score_topk 8, max_batch 256, bf16) with ``attn_impl: flash`` and
@@ -49,8 +58,10 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    same fitted weights and norm statistics must give the same decisions;
 10. phase 7's MLP detector with ``dtype: int8w``: the parity gate must
    install the int8 path (``activated``, 0 flips); its lines/s beside phase
-   7's, the ``quant_stats`` bytes, and its decisions against the bf16
-   detector on the same fitted weights;
+   7's, the ``quant_stats`` bytes, its resident weight bytes (the allocated
+   bytes an install adds, beside those of a float serving copy), one batch
+   of 4096 through the int8 path and the float weights in turns, and its
+   decisions against the bf16 detector on the same fitted weights;
 11. checkpoints on the card: the fitted GRU and int8w detectors saved and
    restored into fresh detectors, which must score one batch of 4096
    bit-equal with an equal threshold (the int8w one re-activating
@@ -83,22 +94,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import bench_torch
+from detectmateservice_tpu_torch.engine.framing import pack_batch
 from detectmateservice_tpu_torch.library.detectors import TorchScorerDetector
+from detectmateservice_tpu_torch.models import quant
 from detectmateservice_tpu_torch.models.mlp import MLPScorer
 from detectmateservice_tpu_torch.ops import cuda_build, flash, scorehead
 from detectmateservice_tpu_torch.schemas import DetectorSchema, ParserSchema
+from detectmateservice_tpu_torch.utils import matchkern
 
 # published dense peaks of one H100 SXM (operations/s) and its HBM rate
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
-# the bench configuration (bench.py BENCH_SCORER_CONFIG) on the port
-SCORER_CONFIG = {
-    "method_type": "torch_scorer", "auto_config": False, "model": "mlp",
-    "data_use_training": 2048, "train_epochs": 2, "async_fit": False,
-    "seq_len": 32, "dim": 128, "max_batch": 16384, "pipeline_depth": 8,
-    "threshold_sigma": 6.0, "head_impl": "pallas", "dtype": "auto",
-}
+# the bench configuration (bench.py BENCH_SCORER_CONFIG) on the port, as
+# bench_torch.py runs it
+SCORER_CONFIG = dict(bench_torch.BENCH_SCORER_CONFIG, dtype="auto")
 N_DETECT = 65536
 CALL_SIZE = 4096
 
@@ -777,6 +788,90 @@ def phase_detector(device: str = "cuda") -> dict:
     return result
 
 
+def frames_expected_launches(device_batches: int) -> dict:
+    """What the wire-frame path launches: the fused head in every
+    calibration chunk of the fit (N = 32) and in every device batch
+    (N = 16,384: the warm-up batch and the timed frames, 32 frames of 512 a
+    call); the lone messages score on the host copy, through no kernel."""
+    calib = -(-SCORER_CONFIG["data_use_training"] // 32)
+    return {"candidate_lse": calib + device_batches, "calibration_chunks": calib,
+            "device_batches": device_batches}
+
+
+def phase_frames(smi: str, device: str = "cuda") -> dict:
+    """The native featurizer against the Python rows, then the MLP detector
+    on bench_torch.py's wire-frame path (phase 7b). The featurizer was
+    built by the first detector's ``setup_io`` (phase 7) unless it was
+    already there; ``build_seconds`` says which."""
+    matchkern.load()
+    det = bench_torch.build_detector("cuda:0" if device == "cuda" else device, SCORER_CONFIG)
+    seq_len, vocab = det.config.seq_len, det.config.vocab_size
+    msgs, anomalies = make_messages(N_DETECT, anomaly_rate=0.01, seed=1)
+
+    # row parity on phase 7's stream, as a batch and packed into frames,
+    # and the featurize pass timed both ways
+    t0 = time.perf_counter()
+    native, ok = matchkern.featurize_batch(msgs, seq_len, vocab)
+    native_s = time.perf_counter() - t0
+    python_det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": dict(
+        SCORER_CONFIG, native_featurize=False)}})
+    t0 = time.perf_counter()
+    python, python_ok = python_det._featurize_raw_batch(msgs)
+    python_s = time.perf_counter() - t0
+    frames = [pack_batch(msgs[i:i + bench_torch.FRAME_N])
+              for i in range(0, N_DETECT, bench_torch.FRAME_N)]
+    t0 = time.perf_counter()
+    fb = matchkern.featurize_frames(frames, seq_len, vocab)
+    frames_s = time.perf_counter() - t0
+    # the engine's newline rule over the raw message bytes
+    lines = sum(max(1, m.count(b"\n") + (0 if m.endswith(b"\n") else 1)) for m in msgs)
+    batch_equal = bool(ok.all() and python_ok.all() and np.array_equal(native, python))
+    frames_equal = bool(len(fb) == N_DETECT and fb.ok.all() and fb.n_corrupt_frames == 0
+                        and fb.n_lines == lines and np.array_equal(fb.tokens, python))
+    if not (batch_equal and frames_equal):
+        raise AssertionError(f"native rows differ from the Python rows (batch equal "
+                             f"{batch_equal}, frames equal {frames_equal})")
+
+    # the main path: launch counts 0 just before, read just after
+    det.setup_io()
+    reset_launches()
+    run = bench_torch.drive(det, N_DETECT)
+    counts = read_launches()
+    launches = counts["candidate_lse"]
+    device_batches = det.path_counts["device"]
+    if det.path_counts != {"device": 1 + N_DETECT // SCORER_CONFIG["max_batch"],
+                           "host": bench_torch.N_SINGLE}:
+        raise AssertionError(f"unexpected dispatch paths {det.path_counts}")
+    expected = frames_expected_launches(device_batches)
+    if counts != {"candidate_lse": expected["candidate_lse"], "flash_forward": 0,
+                  "flash_dq": 0, "flash_dkv": 0}:
+        raise AssertionError(f"the wire-frame path launched {counts}, expected {expected}")
+    variants = read_variants()["candidate_lse"]
+    check_head_variants(variants, "wgmma_tma_d128_", launches, "wire-frame")
+    if det.featurize_rows["fallback"] or det.featurize_rows["native"] == 0:
+        raise AssertionError(f"rows featurized in Python: {det.featurize_rows}")
+    threshold = det._threshold
+    by_id = _alerts_by_id(run["alerts"], threshold)
+    recall = len(anomalies & set(by_id)) / max(1, len(anomalies))
+    result = dict(
+        card=smi, native_build_s=matchkern.build_seconds,
+        rows_bit_equal={"batch": batch_equal, "frames": frames_equal},
+        featurize_s={"native_batch": native_s, "native_frames": frames_s,
+                     "python": python_s},
+        featurize_threads=matchkern.featurize_threads(),
+        lines_per_s=run["lines_per_s"], detect_s=run["elapsed_s"], n_detect=N_DETECT,
+        frames_per_call=det.config.max_batch // bench_torch.FRAME_N, p50_ms=run["p50_ms"], p50_paths=run["p50_paths"],
+        threshold=threshold, alerts=len(by_id), anomalies=len(anomalies), recall=recall,
+        precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
+        featurize_rows=det.featurize_rows, path_counts=det.path_counts,
+        launches=launches, launch_counts=counts, expected_launches=expected,
+        variants=variants)
+    emit("frames", **result)
+    if recall < 0.9:
+        raise AssertionError(f"recall on the wire-frame path is {recall}")
+    return result
+
+
 def check_head_variants(variants: dict, prefix: str, launches: int, path: str) -> None:
     """Every fused-head launch of a path took a tensor-core variant at the
     path's D (``prefix``); fails otherwise."""
@@ -1037,8 +1132,8 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
     if not (report["activated"] and report["gated"] and report["flips"] == 0
             and report["rows"] == 512):
         raise AssertionError(f"the int8 gate did not install at zero flips: {report}")
-    if det._scorer.config.dtype != torch.bfloat16 or det._qmodel is None:
-        raise AssertionError("the int8w detector is not serving its bf16 int8 copy")
+    if det._scorer.config.dtype != torch.bfloat16 or det._qstate is None:
+        raise AssertionError("the int8w detector is not serving its bf16 int8 path")
     device_batches = det.path_counts["device"]
     if device_batches != N_DETECT // CALL_SIZE or det.path_counts["host"]:
         raise AssertionError(f"unexpected dispatch paths {det.path_counts}")
@@ -1063,27 +1158,55 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
     bf16_by_id = _alerts_by_id(bf16_alerts, threshold)
     flips, near = _flips(by_id, bf16_by_id, bf16, detect_msgs, threshold, CALL_SIZE)
 
-    # device time of one detect batch through the int8 copy and through the
-    # float weights, in turns (int8, float, float, int8)
+    # device time of one detect batch through the int8 path (dequantized in
+    # the call) and through the float weights, in turns (int8, float, float,
+    # int8)
     tokens, _ = det._featurize_raw_batch(detect_msgs[:CALL_SIZE])
-    qmodel = det._qmodel
+    qstate = det._qstate
     batch_ms = {"int8": [], "float": []}
     for path in ("int8", "float", "float", "int8"):
-        det._qmodel = qmodel if path == "int8" else None
+        det._qstate = qstate if path == "int8" else None
         batch_ms[path].append(time_ms(lambda: det._score_dev(tokens), reps=10))
-    det._qmodel = qmodel
+    det._qstate = qstate
+    resident = int8_resident_bytes(det)
 
     result = dict(
         fit_s=fit_s, detect_s=detect_s, lines_per_s=N_DETECT / detect_s,
         bf16_lines_per_s=bf16_lines_per_s, n_detect=N_DETECT, call_size=CALL_SIZE,
         batch_ms=batch_ms, threshold=threshold, alerts=len(by_id), anomalies=len(anomalies), recall=recall,
-        gate=report, quant_bytes=report["bytes"], launches=counts["candidate_lse"],
+        gate=report, quant_bytes=report["bytes"], resident=resident,
+        launches=counts["candidate_lse"],
         expected_launches=expected, variants=variants,
         bf16_alerts=len(bf16_by_id), decision_flips=len(flips), flip_distances=near)
     emit("int8_detector", **result)
     if recall < 0.9:
         raise AssertionError(f"int8w recall on the injected anomalies is {recall}")
     return result, det
+
+
+def int8_resident_bytes(det) -> dict:
+    """The device bytes the int8 path keeps: ``memory_allocated`` before
+    and after an ungated install of the detector's weights, beside the same
+    delta for the serving copy earlier versions built (an fp32 clone of the
+    model holding the dequantized weights), and the int8 state's own tensor
+    bytes. The detector serves its int8 path again afterwards."""
+    torch.cuda.synchronize()
+    corpus, det._parity_corpus = det._parity_corpus, None
+    det._qstate = None
+    base = torch.cuda.memory_allocated()
+    det._activate_int8(where="resident")
+    torch.cuda.synchronize()
+    install = torch.cuda.memory_allocated() - base
+    det._parity_corpus = corpus
+    state = sum(t.numel() * t.element_size() for leaf in det._qstate.values() for t in leaf)
+    base = torch.cuda.memory_allocated()
+    copy = det._scorer.clone_model(det._model, det._device)
+    copy.load_state_dict(quant.dequantize(det._qstate, det._scorer.config.dtype))
+    torch.cuda.synchronize()
+    copy_bytes = torch.cuda.memory_allocated() - base
+    del copy
+    return {"install_allocated_delta": install, "int8_state_tensor_bytes": state,
+            "float_copy_allocated_delta": copy_bytes}
 
 
 def phase_checkpoints(detectors: dict) -> dict:
@@ -1140,6 +1263,8 @@ def main() -> int:
     flash_times = phase_flash_timings()
     mlp = phase_detector()
     torch.cuda.empty_cache()
+    frames = phase_frames(_smi)
+    torch.cuda.empty_cache()
     logbert = phase_logbert_detector()
     torch.cuda.empty_cache()
     gru, gru_det = phase_gru_detector()
@@ -1152,9 +1277,10 @@ def main() -> int:
         "route": "cuda",
         "source": "detectmateservice_tpu_torch/ops/csrc/scorehead.cu",
         "replaces": "detectmateservice_tpu/ops/scorehead.py:55",
-        "launches": (mlp["launches"] + logbert["launch_counts"]["candidate_lse"]
+        "launches": (mlp["launches"] + frames["launches"]
+                     + logbert["launch_counts"]["candidate_lse"]
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]),
-        "launches_by_path": {"mlp": mlp["launches"],
+        "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
                              "int8w_mlp": int8["launches"]},
@@ -1167,7 +1293,7 @@ def main() -> int:
         "shape": [CALL_SIZE, 32768, 128],
         "variant": mlp_row["variant"],
         "bound_share": mlp_row["bound_share"],
-        "launches_by_variant": {"mlp": mlp["variants"],
+        "launches_by_variant": {"mlp": mlp["variants"], "mlp_frames": frames["variants"],
                                 "logbert": logbert["variants"]["candidate_lse"],
                                 "gru": gru["variants"],
                                 "int8w_mlp": int8["variants"]},

@@ -12,7 +12,7 @@ alert-or-None per message) and the same phases:
    calibrates the alert threshold as ``mean + threshold_sigma * std`` of
    the training scores (or of the positional z-scores, ``score_norm:
    position``),
-3. **detect** — batches are tokenized on the host, padded to a power-of-two
+3. **detect** — batches are featurized on the host, padded to a power-of-two
    bucket, scored on the device, and read back asynchronously: up to
    ``pipeline_depth`` batches stay in flight, each with a CUDA event that
    says when its scores have landed in pinned host memory; scores above
@@ -32,15 +32,31 @@ detector does: activations in bf16 on CUDA and fp32 on the CPU; at the end
 of each fit the weights are quantized, the calibration split's first 512
 rows (the parity corpus) are scored through the float and the quantized
 path, and the quantized path serves only if no alert decision flips
-(``_int8_report`` says what the gate found). ``save_checkpoint`` and
+(``_int8_report`` says what the gate found). The device keeps only the
+int8 payloads, their fp32 scales and the passthrough leaves; every scoring
+call dequantizes them into the compute dtype and runs the scorer on them
+through ``torch.func.functional_call`` over a skeleton of the model on the
+meta device, so no second float model is resident. ``save_checkpoint`` and
 ``load_checkpoint`` persist the float weights, the optimizer state and the
 calibration (``utils/checkpoint.py``); a restore re-quantizes ungated.
 
+Featurization runs in C (``utils/matchkern.py`` over ``native/dmfeat.c``,
+the port's copy of the JAX package's featurizer) with ``native_featurize:
+true``, the default: the protobuf wire parse, tokenize and hash of a whole
+batch in one GIL-free call over a row-parallel pool (``featurize_threads``
+sets its width), and only the rows the C side refuses (more than 64
+header-map entries, for one) are retried in Python, which gives the same
+rows. ``setup_io`` builds the library with the host compiler; a failed build
+raises ``LibraryError`` there, where the JAX detector falls back to Python
+in silence. ``native_featurize: false`` featurizes every row in Python.
+``featurize_rows`` counts the rows each path featurized.
+``process_frames`` takes packed wire frames (``engine/framing.py``) as the
+JAX detector's does: in the fitted steady state one native call expands and
+featurizes the whole burst, and raw bytes are sliced only for the alerts.
+
 Options of the JAX detector that later slices port raise ``LibraryError``
 when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``,
-``batch_deadline_ms > 0``, ``upload_workers > 0``, ``featurize_threads >
-0``. ``native_featurize`` is accepted; featurization runs in Python here
-(rows identical to the native featurizer's).
+``batch_deadline_ms > 0``, ``upload_workers > 0``.
 """
 from __future__ import annotations
 
@@ -53,6 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...engine.framing import FramingError, unpack_batch
 from ...models import quant
 from ...models.base import ScorerBase
 from ...models.gru import GRUScorer, GRUScorerConfig
@@ -62,6 +79,7 @@ from ...models.tokenizer import PAD_ID, HashTokenizer, narrow_tokens
 from ...ops import flash, scorehead
 from ...ops.attention import FLASH_MIN_SEQ
 from ...schemas import DetectorSchema, ParserSchema, SchemaError
+from ...utils import matchkern
 from ...utils.checkpoint import (COMPATIBLE_TREE_VERSIONS, MODEL_TREE_VERSIONS,
                                  load_scorer_state, save_scorer_state)
 from ...utils.device import resolve_device
@@ -111,8 +129,8 @@ class TorchScorerDetectorConfig(CoreDetectorConfig):
     bucket_retire_interval_s: float = 0.0
     bucket_retire_min_dispatches: int = 2
     upload_workers: int = 0               # upload workers: a later slice
-    native_featurize: bool = True         # accepted; Python featurize here
-    featurize_threads: int = 0            # native featurize: a later slice
+    native_featurize: bool = True         # featurize in C (utils/matchkern.py)
+    featurize_threads: int = 0            # native pool width; 0 = auto
     # batches of at most this many rows score on the CPU copy of the module
     host_score_max_batch: int = 128
     device: Optional[str] = None          # None = "cuda:0"; "cuda:N" | "cpu"
@@ -153,6 +171,24 @@ class _InflightSlot:
         self.raws = raws
         self.real = real
         self.path = path
+
+
+class _ServingModule(torch.nn.Module):
+    """The int8 serving path: ``forward`` scores through ``scorer`` on
+    ``model``, a skeleton of the scorer's module on the meta device (no
+    storage of its own); ``torch.func.functional_call`` supplies every leaf
+    (keys ``model.<state_dict key>``) for the duration of one call."""
+
+    def __init__(self, scorer: ScorerBase):
+        super().__init__()
+        self.scorer = scorer
+        self.model = scorer.meta_model()
+
+    def forward(self, tokens: torch.Tensor,
+                norm: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+        if norm is not None:
+            return self.scorer.normscore(self.model, tokens, *norm)
+        return self.scorer.score(self.model, tokens)
 
 
 class TorchScorerDetector(CoreDetector):
@@ -196,10 +232,17 @@ class TorchScorerDetector(CoreDetector):
         # scored batches by path ("device" / "host"), for callers that check
         # which path a stream took
         self.path_counts: Dict[str, int] = {"device": 0, "host": 0}
-        # weight-only int8 serving (dtype: int8w): the dequantized serving
-        # copy of the model, live only after the parity gate passed
+        # rows featurized in C and rows featurized in Python (the retries of
+        # rows the C side refused, or every row with native_featurize off)
+        self.featurize_rows: Dict[str, int] = {"native": 0, "fallback": 0}
+        self._native_ready = False
+        # weight-only int8 serving (dtype: int8w): the quantized state on the
+        # device, live only after the parity gate passed, and the meta-device
+        # skeleton each call runs the scorer on
         self._int8w = self.config.dtype == "int8w"
-        self._qmodel: Optional[torch.nn.Module] = None
+        self._qstate: Optional[Dict[str, quant.QuantLeaf]] = None
+        self._serving: Optional[_ServingModule] = None
+        self._serve_lock = threading.Lock()
         self._parity_corpus: Optional[np.ndarray] = None
         self._int8_report: Optional[Dict[str, Any]] = None
 
@@ -242,8 +285,6 @@ class TorchScorerDetector(CoreDetector):
                                   "the coalescer slice"),
             "upload_workers": (cfg.upload_workers > 0,
                                "the coalescer and upload-worker slice"),
-            "featurize_threads": (cfg.featurize_threads > 0,
-                                  "the native featurize slice"),
         }
         for field, (unported, slice_name) in later.items():
             if unported:
@@ -253,10 +294,13 @@ class TorchScorerDetector(CoreDetector):
 
     # -- lifecycle ------------------------------------------------------
     def setup_io(self) -> None:
-        """Resolve the device, build the model with params initialized on
-        it, build the CUDA kernels the configured path runs (the fused head,
-        the flash kernels), and run each bucket the JAX detector compiles at
-        boot once (allocator and kernel warm-up)."""
+        """Build the native featurizer (``native_featurize``), resolve the
+        device, build the model with params initialized on it, build the
+        CUDA kernels the configured path runs (the fused head, the flash
+        kernels), and run each bucket the JAX detector compiles at boot once
+        (allocator and kernel warm-up)."""
+        if self.config.native_featurize:
+            self._native()
         self._ensure_scorer()
         cfg = self.config
         small = () if cfg.host_score_max_batch > 0 else (1, 8)
@@ -371,12 +415,19 @@ class TorchScorerDetector(CoreDetector):
     def _score_dev(self, tokens: np.ndarray) -> torch.Tensor:
         """Queue scoring of [n, S] tokens on the device; returns the device
         tensor without waiting for it (positional z-scores once calibrated).
-        The int8 serving copy scores while it is live."""
-        model = self._qmodel if self._qmodel is not None else self._model
+        While the int8 path serves, its state is dequantized into the
+        compute dtype here, in the call."""
+        put = self._put(tokens)
+        if self._qstate is not None:
+            params = quant.dequantize(self._qstate, self._scorer.config.dtype)
+            with self._serve_lock:  # functional_call swaps the skeleton's leaves
+                return torch.func.functional_call(
+                    self._serving, {f"model.{k}": v for k, v in params.items()},
+                    (put, self._norm_dev))
         if self._norm_dev is not None:
             mu, sigma = self._norm_dev
-            return self._scorer.normscore(model, self._put(tokens), mu, sigma)
-        return self._scorer.score(model, self._put(tokens))
+            return self._scorer.normscore(self._model, put, mu, sigma)
+        return self._scorer.score(self._model, put)
 
     def _token_nlls_dev(self, tokens: np.ndarray) -> torch.Tensor:
         return self._scorer.token_nlls(self._model, self._put(tokens))
@@ -436,11 +487,40 @@ class TorchScorerDetector(CoreDetector):
             dict(input_["logFormatVariables"]),
         )
 
+    def _native(self):
+        """The native featurizer (``utils/matchkern.py``), built at the first
+        call, its pool set to ``featurize_threads`` when that is > 0. A
+        failed build raises ``LibraryError``: no path runs the Python
+        featurizer for a whole batch in its place."""
+        if not self._native_ready:
+            try:
+                matchkern.load()
+                if self.config.featurize_threads > 0:
+                    matchkern.set_featurize_threads(self.config.featurize_threads)
+            except matchkern.NativeBuildError as exc:
+                raise LibraryError(
+                    f"native_featurize is on but the native featurizer did not build: "
+                    f"{exc}") from exc
+            self._native_ready = True
+        return matchkern
+
     def _featurize_raw_batch(self, batch: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
-        """Serialized ParserSchema bytes → ([N, S] int32 tokens, [N] ok)."""
-        tokens = np.zeros((len(batch), self.config.seq_len), np.int32)
+        """Serialized ParserSchema bytes → ([N, S] int32 tokens, [N] ok).
+        Natively with ``native_featurize``, retrying in Python only the rows
+        the C side refuses (the same rows, exactly); in Python otherwise."""
+        cfg = self.config
+        if cfg.native_featurize:
+            tokens, ok = self._native().featurize_batch(batch, cfg.seq_len, cfg.vocab_size)
+            flagged = np.flatnonzero(~ok)
+            if len(flagged):
+                self._featurize_python_rows(batch, tokens, ok, flagged)
+            self.featurize_rows["native"] += len(batch) - len(flagged)
+            self.featurize_rows["fallback"] += len(flagged)
+            return tokens, ok
+        tokens = np.zeros((len(batch), cfg.seq_len), np.int32)
         ok = np.zeros(len(batch), dtype=bool)
         self._featurize_python_rows(batch, tokens, ok, range(len(batch)))
+        self.featurize_rows["fallback"] += len(batch)
         return tokens, ok
 
     def _featurize_python_rows(self, batch: List[bytes], tokens: np.ndarray,
@@ -456,7 +536,7 @@ class TorchScorerDetector(CoreDetector):
             lfv = msg["logFormatVariables"]
             if lfv:
                 parts.extend(f"{k}={lfv[k]}" for k in sorted(lfv))
-            tokens[i] = 0
+            tokens[i] = 0  # the native pass may have partly filled the row
             encode_into(" ".join(parts), tokens[i])
             ok[i] = True
 
@@ -478,9 +558,9 @@ class TorchScorerDetector(CoreDetector):
         data = np.stack(self._train_buffer)
         self._train_buffer = []
         if self._int8w:
-            # training updates the float weights; the previous quantized copy
+            # training updates the float weights; the previous quantized state
             # must not serve (or calibrate) stale scores mid-fit
-            self._qmodel = None
+            self._qstate = None
         bs = min(cfg.train_batch_size, len(data))
         loss = float("nan")
         rng = np.random.default_rng(cfg.seed)
@@ -523,11 +603,11 @@ class TorchScorerDetector(CoreDetector):
                                  _bucket(self.config.train_batch_size, self.config.max_batch))
 
     def _activate_int8(self, where: str = "fit") -> Dict[str, Any]:
-        """Quantize the live weights and cut serving over to their
-        dequantized copy, gated on differential parity: the quantized path
-        must flip no alert decision on the parity corpus against the path
-        serving now, or that path stays live. Without a corpus (a restore
-        before any fit) the copy installs ungated."""
+        """Quantize the live weights and cut serving over to the int8 path
+        (dequantized per call), gated on differential parity: the quantized
+        path must flip no alert decision on the parity corpus against the
+        path serving now, or the float weights serve. Without a corpus (a
+        restore before any fit) the int8 state installs ungated."""
         report: Dict[str, Any] = {"activated": False, "where": where,
                                   "rows": 0, "flips": 0, "flip_ratio": 0.0}
         threshold = float(self._threshold) if self._threshold is not None else float("inf")
@@ -537,11 +617,11 @@ class TorchScorerDetector(CoreDetector):
         float_scores = None
         if corpus is not None and len(corpus):
             float_scores = self._parity_scores(corpus)
-        # tentative install (dequantized once, here), then judge the q path
+        # tentative install, then judge the per-call int8 path that serves
         # on the same corpus
-        qmodel = self._scorer.clone_model(self._model, self._device)
-        qmodel.load_state_dict(quant.dequantize(qstate, self._scorer.config.dtype))
-        self._qmodel = qmodel
+        if self._serving is None:
+            self._serving = _ServingModule(self._scorer)
+        self._qstate = qstate
         ok = True
         if float_scores is not None:
             q_scores = self._parity_scores(corpus)
@@ -550,7 +630,7 @@ class TorchScorerDetector(CoreDetector):
                           flip_ratio=float(flips) / max(1, len(float_scores)))
             ok = flips == 0
         if not ok:
-            self._qmodel = None  # parity broke: the quantized copy never serves
+            self._qstate = None  # parity broke: the quantized path never serves
         else:
             report["activated"] = True
             report["gated"] = float_scores is not None
@@ -611,12 +691,87 @@ class TorchScorerDetector(CoreDetector):
                 detect_idx.append(i)
         if detect_idx:
             self._dispatch(tokens[detect_idx], [batch[i] for i in detect_idx])
+        return self._drain_landed()
+
+    def _drain_landed(self) -> List[Optional[bytes]]:
+        """The alerts of every in-flight batch whose scores have landed,
+        then of the oldest batches beyond ``pipeline_depth`` (older batches
+        first)."""
         ready: List[Optional[bytes]] = []
         while self._inflight and self._head_ready():
             ready.extend(self._drain_one())
         while len(self._inflight) > self.config.pipeline_depth:
             ready.extend(self._drain_one())
         return ready
+
+    def process_frames(self, frames: List[bytes]) -> Tuple[List[Optional[bytes]], int, int]:
+        """Wire-frame hot path, as the JAX detector's: raw wire frames
+        (packed batch frames of ``engine/framing.py``, or single messages)
+        → ``(ready_outputs, n_messages, n_lines)``, ``n_lines`` by the
+        engine's newline rule. Packed empty messages are filtered and not
+        counted; a corrupt batch frame is counted as a processing error.
+
+        In the fitted steady state one native call expands and featurizes
+        the whole burst; the rows stay spans into the frame blob
+        (``SpanRaws``) through dispatch and drain, and only the anomalous
+        rows are sliced, to build their alerts. During the training phase
+        or a running fit the burst is materialized and goes through
+        ``process_batch``. With ``native_featurize: false`` the frames are
+        expanded in Python."""
+        cfg = self.config
+        if not cfg.native_featurize:
+            msgs: List[bytes] = []
+            n_corrupt = 0
+            for frame in frames:
+                expanded = self._expand_frame_python(frame)
+                if expanded is None:
+                    n_corrupt += 1
+                else:
+                    msgs.extend(expanded)
+            if n_corrupt:
+                self.count_processing_errors(n_corrupt, "corrupt batch frame(s)")
+            n_lines = sum(max(1, d.count(b"\n") + (0 if d.endswith(b"\n") else 1))
+                          for d in msgs)
+            return self.process_batch(msgs), len(msgs), n_lines
+
+        fit_thread = self._fit_thread
+        if fit_thread is not None and not fit_thread.is_alive():
+            self._finish_fit()
+        kern = self._native()
+        fb = kern.featurize_frames(frames, cfg.seq_len, cfg.vocab_size)
+        if fb.n_corrupt_frames:
+            self.count_processing_errors(fb.n_corrupt_frames, "corrupt batch frame(s)")
+        n = len(fb)
+        steady = (self._fitted and self._fit_thread is None
+                  and self._trained >= cfg.data_use_training)
+        if not steady:
+            return self.process_batch([fb.raw(i) for i in range(n)]), n, fb.n_lines
+        raws = kern.SpanRaws(fb.blob, fb.spans)
+        flagged = np.flatnonzero(~fb.ok)
+        if len(flagged):
+            # rows the C side refused: retried in Python, as in a batch
+            self._featurize_python_rows(raws, fb.tokens, fb.ok, flagged)
+        self.featurize_rows["native"] += n - len(flagged)
+        self.featurize_rows["fallback"] += len(flagged)
+        tokens = fb.tokens
+        if not fb.ok.all():
+            keep = np.flatnonzero(fb.ok)
+            tokens, raws = tokens[keep], kern.SpanRaws(fb.blob, fb.spans[keep])
+        if len(tokens):
+            self._dispatch(tokens, raws)
+        return self._drain_landed(), n, fb.n_lines
+
+    @staticmethod
+    def _expand_frame_python(frame: bytes) -> Optional[List[bytes]]:
+        """A frame's non-empty messages, expanded in Python; None for a
+        corrupt batch frame."""
+        try:
+            msgs = unpack_batch(frame)
+        except FramingError:
+            return None
+        if msgs is None:
+            return [frame] if frame else []
+        return [m for m in msgs if m]
 
     def _head_ready(self) -> bool:
         """True when the oldest in-flight batch's scores are host-readable
@@ -683,7 +838,7 @@ class TorchScorerDetector(CoreDetector):
         n = len(tokens)
         cap = self.config.host_score_max_batch
         if 0 < n <= cap and self._host_model is not None:
-            slot = _InflightSlot(list(msgs), n, path="host")
+            slot = _InflightSlot(msgs, n, path="host")
             slot.scores = self._score_host(tokens)
             self._inflight.append(slot)
             self.path_counts["host"] += 1

@@ -124,9 +124,7 @@ class ScorerBase:
                    generator: Optional[torch.Generator] = None) -> torch.nn.Module:
         """A fresh module on ``device``, initialized from ``generator`` (a
         generator on that device) with flax's initializers."""
-        with torch.device("meta"):  # no throwaway default init
-            model = self._build_model()
-        model = model.to_empty(device=device)
+        model = self.meta_model().to_empty(device=device)
         if generator is None:
             generator = torch.Generator(device=device)
         with torch.no_grad():
@@ -136,11 +134,15 @@ class ScorerBase:
     def clone_model(self, model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
         """A frozen copy of ``model``'s weights on ``device`` (the host copy
         the detector scores small batches on)."""
-        with torch.device("meta"):
-            clone = self._build_model()
-        clone = clone.to_empty(device=device)
+        clone = self.meta_model().to_empty(device=device)
         clone.load_state_dict(model.state_dict())
         return clone.requires_grad_(False)
+
+    def meta_model(self) -> torch.nn.Module:
+        """The module on the meta device: its structure, with no storage
+        and no initialization."""
+        with torch.device("meta"):
+            return self._build_model()
 
     def make_optimizer(self, model: torch.nn.Module) -> torch.optim.Optimizer:
         """AdamW with optax.adamw's defaults (decoupled weight decay 1e-4)."""

@@ -17,11 +17,12 @@ to the same payloads in both packages:
 
 A quantized leaf is ``(q_int8, scale_fp32)``, the scale shaped to broadcast
 against ``q`` (``[out, 1]`` for a ``Linear`` weight, ``[1, D]`` for an
-embedding); a passthrough leaf is ``(w,)``. ``dequantize`` is
-``q.to(dtype) * scale.to(dtype)``. The detector dequantizes once per
-activation into a serving copy of the model; the JAX package dequantizes
-inside every jitted call, where XLA fuses it into the weight reads (a TPU
-design that has no counterpart here).
+embedding); a passthrough leaf is ``(w,)``, a copy of the float tensor, so
+a later training step does not move it. ``dequantize`` is
+``q.to(dtype) * scale.to(dtype)``. The detector keeps only this state on the
+device and dequantizes it inside every scoring call, as the JAX package
+does inside every jitted call (where XLA also fuses the dequantization into
+the weight reads; here it is its own pass over the weights).
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def quantize(state_dict: Dict[str, torch.Tensor],
     out: Dict[str, QuantLeaf] = {}
     for key, w in state_dict.items():
         if not eligible(w):
-            out[key] = (w,)
+            out[key] = (w.detach().clone(),)
         else:
             out[key] = _quantize_leaf(w, 0 if key in linear_keys else w.dim() - 1)
     return out

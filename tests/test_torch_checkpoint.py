@@ -311,5 +311,5 @@ class TestLoadBranches:
         report = fresh._int8_report
         assert report["activated"] and report["gated"] is False
         assert report["where"] == "restore" and report["rows"] == 0
-        assert fresh._qmodel is not None
+        assert fresh._qstate is not None
         np.testing.assert_array_equal(fresh.score_tokens(_PROBE), det.score_tokens(_PROBE))

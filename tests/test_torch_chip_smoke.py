@@ -11,7 +11,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-import chip_smoke  # noqa: E402  (the script lives at the repo root)
+import bench_torch  # noqa: E402  (the scripts live at the repo root)
+import chip_smoke  # noqa: E402
 
 
 def _run(cwd, *env_pairs):
@@ -254,3 +255,94 @@ def test_gru_path_shapes_are_checked_and_timed():
     assert {(131072, 128), (1024, 128)} <= set(chip_smoke.LSE_TIMED)
     # the library yardstick runs the 8 GiB bf16 product in two chunks
     assert len(chip_smoke.row_chunks(131072, chip_smoke.LSE_LIBRARY_ROWS)) == 2
+
+
+def test_frames_launch_counts_and_config():
+    """Phase 7b: 64 calibration chunks, then the warm-up batch and 4 timed
+    batches of 16,384 rows (32 frames of 512 a call); the lone messages
+    launch nothing. The configuration is bench_torch.py's."""
+    want = chip_smoke.frames_expected_launches(device_batches=5)
+    assert want == {"candidate_lse": 64 + 5, "calibration_chunks": 64, "device_batches": 5}
+    assert chip_smoke.SCORER_CONFIG == dict(bench_torch.BENCH_SCORER_CONFIG, dtype="auto")
+    assert chip_smoke.N_DETECT // chip_smoke.SCORER_CONFIG["max_batch"] == 4
+    assert chip_smoke.SCORER_CONFIG["max_batch"] // bench_torch.FRAME_N == 32
+
+
+def test_frames_phase_line_on_the_cpu(monkeypatch, capsys):
+    """Phase 7b at a tiny width on the CPU, with a counting stand-in for the
+    fused head (its plain version underneath): rows bit-equal both ways,
+    exact launches, no Python rows, recall, and one JSON line."""
+    import json
+    from collections import Counter
+
+    from detectmateservice_tpu_torch.models import base
+    from detectmateservice_tpu_torch.ops import scorehead
+
+    def stand_in(h, e):
+        stand_in.launches += 1
+        stand_in.variants[f"wgmma_tma_d{h.shape[1]}_split1"] += 1
+        return scorehead.candidate_lse_reference(h, e)
+
+    stand_in.launches, stand_in.variants = 0, Counter()
+    stand_in.__name__ = "candidate_lse"
+    monkeypatch.setattr(scorehead, "candidate_lse", stand_in)
+    monkeypatch.setattr(base, "candidate_lse", stand_in)
+    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", (stand_in, *chip_smoke.KERNEL_WRAPPERS[1:]))
+    monkeypatch.setattr(chip_smoke, "SCORER_CONFIG", dict(
+        chip_smoke.SCORER_CONFIG, vocab_size=1024, dim=128, max_batch=1024,
+        data_use_training=128))
+    monkeypatch.setattr(chip_smoke, "N_DETECT", 4096)
+    result = chip_smoke.phase_frames("cpu", device="cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "frames" and line["card"] == "cpu"
+    assert result["rows_bit_equal"] == {"batch": True, "frames": True}
+    assert set(result["featurize_s"]) == {"native_batch", "native_frames", "python"}
+    assert result["path_counts"] == {"device": 5, "host": 64}
+    assert result["p50_paths"] == {"device": 0, "host": 64}
+    assert result["launches"] == 4 + 5 == stand_in.launches
+    assert result["featurize_rows"]["fallback"] == 0
+    assert result["recall"] >= 0.9
+
+
+def test_bench_torch_messages_match_bench_generator():
+    import bench
+
+    assert bench_torch.make_messages(300, anomaly_rate=0.05, seed=4) == \
+        bench.make_messages(300, anomaly_rate=0.05, seed=4)
+    msgs, _ = chip_smoke.make_messages(50, seed=1)
+    assert msgs == bench_torch.make_messages(50, seed=1)
+
+
+def test_bench_torch_config_is_bench_py_but_two_fields():
+    import bench
+
+    cfg = dict(bench_torch.BENCH_SCORER_CONFIG)
+    assert cfg.pop("method_type") == "torch_scorer" and cfg.pop("head_impl") == "pallas"
+    ref = dict(bench.BENCH_SCORER_CONFIG)
+    ref.pop("method_type")
+    assert cfg == ref
+    assert bench_torch.FULL_N == bench.FULL_N
+
+
+def test_bench_torch_drive_on_the_cpu():
+    det = bench_torch.build_detector("cpu", dict(
+        bench_torch.BENCH_SCORER_CONFIG, vocab_size=1024, dim=16, max_batch=1024,
+        data_use_training=64))
+    assert det.config.dtype == "float32" and det.config.device == "cpu"
+    det.setup_io()
+    run = bench_torch.drive(det, 2048)
+    assert run["n"] == 2048 and run["lines_per_s"] > 0 and run["p50_ms"] > 0
+    assert run["p50_paths"] == {"device": 0, "host": bench_torch.N_SINGLE}
+    assert det.path_counts["device"] == 1 + 2048 // 1024
+    # fit, warm-up, timed frames and lone messages: all native
+    assert det.featurize_rows == {"native": 64 + 1024 + 2048 + bench_torch.N_SINGLE,
+                                  "fallback": 0}
+    assert all(isinstance(a, bytes) for a in run["alerts"])
+
+
+def test_bench_torch_without_a_cuda_device_exits_2():
+    proc = subprocess.run([sys.executable, "bench_torch.py", "--n", "512"], cwd=REPO,
+                          env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
+                          capture_output=True, text=True, timeout=120, check=False)
+    assert proc.returncode == 2
+    assert "metric" not in proc.stdout

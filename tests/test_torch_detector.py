@@ -223,6 +223,78 @@ class TestAsyncFit:
         assert det._fit_thread is None and not det._pending
 
 
+def _frame_calls(stream=STREAM):
+    """``process_frames`` calls over ``stream`` in order: packed frames of
+    several sizes (one crossing the train/detect boundary at N_TRAIN),
+    lone messages (host-path batches), empty frames, packed empty messages
+    and corrupt batch frames (one truncated, one with trailing bytes)."""
+    from detectmateservice_tpu_torch.engine.framing import pack_batch
+
+    plan = [[40, 40], [40, "truncated", 40], [64, 1, 1, "empty"], [50, 64], [1],
+            ["empties", 10], [64, 33, "trailing"], [64, 16], [32]]
+    calls, pos = [], 0
+    for group in plan:
+        frames = []
+        for item in group:
+            if item == "empty":
+                frames.append(b"")
+            elif item == "truncated":
+                frames.append(pack_batch(stream[pos:pos + 3])[:-2])
+            elif item == "trailing":
+                frames.append(pack_batch(stream[pos:pos + 3]) + b"\x01")
+            elif item == "empties":
+                frames.append(pack_batch([b"", b""]))
+            elif item == 1:
+                frames.append(stream[pos])
+                pos += 1
+            else:
+                frames.append(pack_batch(stream[pos:pos + item][:3] + [b""]
+                                         + stream[pos:pos + item][3:]))
+                pos += item
+        calls.append(frames)
+    assert pos <= len(stream)
+    return calls, pos
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_process_frames_matches_the_jax_detector(native, pinned_pair):
+    """The same packed frames through both detectors' ``process_frames``,
+    from the same weights at the pinned threshold: the training phase, the
+    boundary inside a call, the steady state, lone messages on the host
+    path and corrupt frames. Message and line counts are equal call by
+    call; alerting logIDs may differ only within 1e-3 of the threshold, and
+    the common alerts' scores agree to rtol 1e-4."""
+    threshold = pinned_pair[4]
+    jax_det, port_det = _pair(score_threshold=threshold, native_featurize=native)
+    calls, n_msgs = _frame_calls()
+    outs = {"jax": [], "port": []}
+    for frames in calls:
+        jax_ready, jax_n, jax_lines = jax_det.process_frames(frames)
+        port_ready, port_n, port_lines = port_det.process_frames(frames)
+        assert (port_n, port_lines) == (jax_n, jax_lines)
+        outs["jax"].extend(jax_ready)
+        outs["port"].extend(port_ready)
+    outs["jax"].extend(jax_det.flush_final())
+    outs["port"].extend(port_det.flush_final())
+    assert sum(len(DetectorSchema.from_bytes(a)["logIDs"]) for a in outs["port"]) == \
+        len(outs["port"])
+    jax_alerts = _by_log_id(outs["jax"], RefDetectorSchema)
+    port_alerts = _by_log_id(outs["port"], DetectorSchema)
+    assert jax_alerts and len(port_alerts) < n_msgs - N_TRAIN
+    assert all(int(i) >= N_TRAIN for i in port_alerts)
+    scores = _ref_scores(jax_det)
+    for log_id in set(jax_alerts) ^ set(port_alerts):
+        assert abs(scores[log_id] - threshold) < 1e-3, log_id
+    for log_id in set(jax_alerts) & set(port_alerts):
+        np.testing.assert_allclose(port_alerts[log_id]["score"],
+                                   jax_alerts[log_id]["score"], rtol=1e-4)
+    assert port_det.path_counts["device"] > 0 and port_det.path_counts["host"] > 0
+    rows = port_det.featurize_rows
+    assert rows == ({"native": rows["native"], "fallback": 0} if native else
+                    {"native": 0, "fallback": rows["fallback"]})
+    assert max(rows.values()) >= n_msgs
+
+
 LOGBERT = dict(BASE, model="logbert", depth=1, heads=2, score_topk=4,
                train_epochs=0, min_train_steps=0)
 # per attention path, the head the test pairs it with (flash + the fused head
@@ -382,7 +454,7 @@ class TestInt8AgainstJaxDetector:
     def test_pinned_threshold_alert_decisions_identical(self, int8_pair):
         """Zero flips farther than 1e-3 from the threshold."""
         jax_det, port_det, _, threshold, (jax_out, port_out) = int8_pair
-        assert port_det._qmodel is not None and jax_det._qparams is not None
+        assert port_det._qstate is not None and jax_det._qparams is not None
         jax_alerts = _by_log_id(jax_out, RefDetectorSchema)
         port_alerts = _by_log_id(port_out, DetectorSchema)
         assert jax_alerts and len(jax_alerts) < sum(CHUNKS)
@@ -391,13 +463,16 @@ class TestInt8AgainstJaxDetector:
             assert abs(scores[log_id] - threshold) < 1e-3, log_id
 
 
-def _int8_detector():
+def _int8_config(**overrides):
+    return dict(BASE, method_type="torch_scorer", device="cpu", dtype="int8w",
+                data_use_training=32, train_epochs=1, min_train_steps=5, max_batch=32,
+                host_score_max_batch=0, threshold_sigma=4.0, **overrides)
+
+
+def _int8_detector(**overrides):
     """``tests/test_warmstart.py``'s int8 detector on the port: a real
     calibrated threshold, so the gate judges decisions that can flip."""
-    det = TorchScorerDetector(config=dict(
-        BASE, method_type="torch_scorer", device="cpu", dtype="int8w",
-        data_use_training=32, train_epochs=1, min_train_steps=5, max_batch=32,
-        host_score_max_batch=0, threshold_sigma=4.0))
+    det = TorchScorerDetector(config=_int8_config(**overrides))
     det.setup_io()
     assert det.process_batch(STREAM[:32]) == []
     det.flush_final()
@@ -417,15 +492,15 @@ class TestInt8Parity:
 
     def test_int8_decisions_match_float_path(self):
         det = _int8_detector()
-        assert det._qmodel is not None
+        assert det._qstate is not None
         tokens = np.random.default_rng(11).integers(
             0, 100, size=(det.config.max_batch, det.config.seq_len)).astype(np.int32)
         q_scores = det.score_tokens(tokens)
-        qmodel, det._qmodel = det._qmodel, None
+        qstate, det._qstate = det._qstate, None
         try:
             f_scores = det.score_tokens(tokens)
         finally:
-            det._qmodel = qmodel
+            det._qstate = qstate
         assert np.all(np.isfinite(q_scores))
         assert not np.array_equal(q_scores, f_scores)   # the int8 copy served
         thr = det._threshold
@@ -445,9 +520,56 @@ class TestInt8Parity:
         rep = det._activate_int8(where="test")
         assert not rep["activated"]
         assert rep["flips"] > 0
-        assert det._qmodel is None, "refused copy left installed"
+        assert det._qstate is None, "refused int8 state left installed"
         scores = det.score_tokens(np.zeros((det.config.max_batch, det.config.seq_len), np.int32))
         assert np.all(np.isfinite(scores))
+
+
+@pytest.mark.parametrize("score_norm", ["none", "position"])
+def test_int8w_keeps_only_int8_payloads_scales_and_passthrough(score_norm, tmp_path):
+    """After a gated activation the detector holds no second float model:
+    the int8 state is exactly ``quant_stats``'s int8 and float bytes, shares
+    no storage with the training model, and scores bit-equal to a float
+    copy dequantized once (fp32 on the CPU); a checkpoint restore
+    re-quantizes, ungated, to the same scores."""
+    from detectmateservice_tpu_torch.models import quant
+
+    det = _int8_detector(score_norm=score_norm)
+    report = det._int8_report
+    assert report["activated"] and report["gated"]
+    modules = {name for name, value in vars(det).items()
+               if isinstance(value, torch.nn.Module)}
+    assert modules == {"_model", "_serving"}      # no host copy at host_score_max_batch 0
+    assert all(p.is_meta for p in det._serving.parameters())
+    leaves = [t for leaf in det._qstate.values() for t in leaf]
+    int8_bytes = sum(t.numel() for t in leaves if t.dtype == torch.int8)
+    float_bytes = sum(t.numel() * t.element_size() for t in leaves if t.is_floating_point())
+    assert (int8_bytes, float_bytes) == (report["bytes"]["int8_bytes"],
+                                         report["bytes"]["float_bytes"])
+    assert int8_bytes + float_bytes < sum(
+        p.numel() * p.element_size() for p in det._model.parameters()) / 3
+    model_ptrs = {p.data_ptr() for p in det._model.parameters()}
+    assert not any(t.data_ptr() in model_ptrs for t in leaves)
+
+    tokens = np.random.default_rng(5).integers(
+        3, 4096, size=(det.config.max_batch, det.config.seq_len)).astype(np.int32)
+    tokens[:, 20:] = 0
+    got = det.score_tokens(tokens)
+    once = det._scorer.clone_model(det._model, torch.device("cpu"))
+    once.load_state_dict(quant.dequantize(det._qstate, torch.float32))
+    wide = torch.from_numpy(tokens).long()
+    if score_norm == "position":
+        want = det._scorer.normscore(once, wide, *det._norm_dev).numpy()
+    else:
+        want = det._scorer.score(once, wide).numpy()
+    np.testing.assert_array_equal(got, want)
+
+    det.save_checkpoint(str(tmp_path / "ckpt"))
+    fresh = TorchScorerDetector(config=_int8_config(score_norm=score_norm))
+    fresh.load_checkpoint(str(tmp_path / "ckpt"))
+    assert fresh._int8_report["activated"] and fresh._int8_report["gated"] is False
+    assert fresh._qstate is not None
+    np.testing.assert_array_equal(fresh.score_tokens(tokens), got)
 
 
 @pytest.mark.parametrize("field,value", [("model", "gru"), ("dtype", "int8w")])
@@ -465,7 +587,6 @@ class TestNotYetPorted:
         ("mesh_shape", {"data": 1}, "multi-GPU"),
         ("batch_deadline_ms", 5.0, "coalescer"),
         ("upload_workers", 1, "upload-worker"),
-        ("featurize_threads", 2, "native featurize"),
     ])
     def test_raises_naming_the_later_slice(self, field, value, slice_name):
         # ring attention belongs to the logbert model
@@ -522,8 +643,9 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "detectmateservice_tpu"
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """In a fresh interpreter (tests/conftest.py has already imported jax in
-    this one): the port, its detector, its ops and chip_smoke.py load
-    without any of the forbidden modules."""
+    this one): the port, its detector, its ops, its featurizer and framing,
+    chip_smoke.py and bench_torch.py load without any of the forbidden
+    modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import detectmateservice_tpu_torch\n"
@@ -538,7 +660,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.ops.cuda_build\n"
         "import detectmateservice_tpu_torch.models.convert\n"
         "import detectmateservice_tpu_torch.utils.device\n"
+        "import detectmateservice_tpu_torch.utils.matchkern\n"
+        "import detectmateservice_tpu_torch.engine.framing\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         "print(' '.join(sorted(sys.modules)))\n")
     proc = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
                           text=True, cwd=REPO, timeout=120, check=False)
@@ -550,15 +675,18 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "detectmateservice_tpu_torch.library.detectors.torch_scorer" in loaded
     assert "detectmateservice_tpu_torch.ops.flash" in loaded
     assert "detectmateservice_tpu_torch.utils.checkpoint" in loaded
+    assert "detectmateservice_tpu_torch.utils.matchkern" in loaded
+    assert "bench_torch" in loaded
 
 
 def test_no_forbidden_import_statement_anywhere_in_the_port():
     """Lazy imports inside functions included: no source file of the port,
-    and not chip_smoke.py, names a forbidden module in an import."""
+    and neither chip_smoke.py nor bench_torch.py, names a forbidden module in
+    an import."""
     import ast
 
     files = sorted((REPO / "detectmateservice_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

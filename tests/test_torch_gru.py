@@ -13,7 +13,7 @@ scores; bf16 hidden states and logits within 2^-4 (one bf16 step at
 magnitudes 4-8, where the two frameworks round a gate differently), bf16
 scores within 0.05 (the bound tests/test_scorehead.py holds the two JAX
 heads to); gradients rtol 1e-3 / atol 1e-6 and the AdamW step within 1e-5
-wherever |g| >= 1e-7 (ROADMAP queue 3 item 1: Adam's eps amplifies
+wherever |g| >= 1e-7 (ROADMAP queue 3 item 4: Adam's eps amplifies
 rounding where the gradient is near it).
 """
 import functools

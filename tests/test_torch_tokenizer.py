@@ -54,8 +54,9 @@ def test_reserved_ids_and_narrowing():
 
 @pytest.mark.parametrize("native", [True, False])
 def test_detector_featurize_matches_jax_detector(native):
-    """The port featurizes serialized ParserSchema bytes in Python; its rows
-    equal the JAX detector's, native featurizer or not."""
+    """The port featurizes serialized ParserSchema bytes natively (its own
+    C featurizer) or in Python; its rows equal the JAX detector's either
+    way."""
     rng = np.random.default_rng(3)
     msgs = []
     for i in range(120):
