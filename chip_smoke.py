@@ -65,7 +65,20 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
 11. checkpoints on the card: the fitted GRU and int8w detectors saved and
    restored into fresh detectors, which must score one batch of 4096
    bit-equal with an equal threshold (the int8w one re-activating
-   ungated).
+   ungated);
+12. the service host (phase ``service``): the port's ``Service`` in this
+   process, ``run()`` on a thread, hosting phase 7's configuration on the
+   card behind zmq ipc sockets, with ``engine_batch_size`` 16,384 (the
+   engine's fused-frame mode). The 2,048 fit messages and then 65,536
+   messages go in packed into frames of 512 with blocking sends, and the
+   alerts are collected until the stream goes quiet: every line sent must
+   be read (``/metrics``), every alert received once and counted written,
+   recall >= 0.9, and the alert set must equal what the hosted detector's
+   own ``score_tokens`` decides at its threshold outside the 1e-2 band.
+   Then the p50 and p99 of 64 lone anomalous messages, send to alert, the
+   admin plane (health 200, stop and start, shutdown with its checkpoint,
+   a fresh Service restoring it bit-equal), and the CLI as a subprocess
+   (fit, 4,096 messages, alerts, ``POST /admin/shutdown``, exit 0).
 
 Each detector run resets every kernel's launch count just before and reads
 them just after; the counts must be exactly what the path launches, and
@@ -80,13 +93,17 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from collections import Counter
 from pathlib import Path
 
@@ -95,12 +112,16 @@ import torch
 import torch.nn.functional as F
 
 import bench_torch
-from detectmateservice_tpu_torch.engine.framing import pack_batch
+from detectmateservice_tpu_torch.core import Service
+from detectmateservice_tpu_torch.engine.engine import count_lines
+from detectmateservice_tpu_torch.engine.framing import pack_batch, unpack_batch
+from detectmateservice_tpu_torch.engine.socket import TransportTimeout, ZmqPairSocketFactory
 from detectmateservice_tpu_torch.library.detectors import TorchScorerDetector
 from detectmateservice_tpu_torch.models import quant
 from detectmateservice_tpu_torch.models.mlp import MLPScorer
 from detectmateservice_tpu_torch.ops import cuda_build, flash, scorehead
 from detectmateservice_tpu_torch.schemas import DetectorSchema, ParserSchema
+from detectmateservice_tpu_torch.settings import ServiceSettings
 from detectmateservice_tpu_torch.utils import matchkern
 
 # published dense peaks of one H100 SXM (operations/s) and its HBM rate
@@ -141,6 +162,13 @@ GRU_CALL = 4096
 
 # phase 7's configuration under weight-only int8
 INT8_CONFIG = dict(SCORER_CONFIG, dtype="int8w")
+
+# the service phase: phase 7's configuration hosted by the port's Service
+TORCH_SCORER = "detectmateservice_tpu_torch.library.detectors.torch_scorer.TorchScorerDetector"
+SERVICE_DETECT = 65536
+SERVICE_FRAME = 512
+SERVICE_LONE = 64
+SERVICE_CLI_DETECT = 4096
 
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
@@ -1247,6 +1275,292 @@ def phase_checkpoints(detectors: dict) -> dict:
     return results
 
 
+# -- phase 12 ----------------------------------------------------------------
+def _http(method: str, port: int, path: str, timeout: float = 30.0):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=b"{}" if method == "POST" else None,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        body = resp.read().decode()
+        return resp.status, (json.loads(body) if "json" in resp.headers["Content-Type"]
+                             else body)
+
+
+def metric_value(text: str, name: str, component_id: str) -> float:
+    """One sample of the Prometheus exposition ``text``: series ``name``
+    with ``component_id``."""
+    for line in text.splitlines():
+        if line.startswith(name + "{") and f'component_id="{component_id}"' in line:
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"{name} of {component_id} not in /metrics")
+
+
+def _wait(predicate, timeout: float, what: str, interval: float = 0.02) -> None:
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(interval)
+
+
+class _Collector(threading.Thread):
+    """Receives alert frames with their arrival times until stopped."""
+
+    def __init__(self, sink):
+        super().__init__(name="AlertCollector", daemon=True)
+        self.sink, self.frames, self.times = sink, [], []
+        self.stop_flag = threading.Event()
+
+    def run(self) -> None:
+        self.sink.recv_timeout = 50
+        while not self.stop_flag.is_set():
+            try:
+                frame = self.sink.recv()
+            except TransportTimeout:
+                continue
+            self.frames.append(frame)
+            self.times.append(time.perf_counter())
+
+
+def _messages_of(frames) -> list:
+    return [m for f in frames for m in (unpack_batch(f) or [f])]
+
+
+def service_files(tmp: Path, name: str, config: dict, **settings) -> Path:
+    """The component config and the settings YAML of one service under
+    ``tmp`` (ipc sockets there); returns the settings file."""
+    import yaml
+
+    (tmp / f"{name}_config.yaml").write_text(yaml.safe_dump(
+        {"detectors": {"TorchScorerDetector": config}}))
+    doc = {"component_type": TORCH_SCORER, "component_id": name,
+           "config_file": str(tmp / f"{name}_config.yaml"),
+           "engine_addr": f"ipc://{tmp}/{name}_in.ipc",
+           "out_addr": [f"ipc://{tmp}/{name}_out.ipc"], "http_port": 0,
+           "log_to_file": False, "log_level": "WARNING", "engine_batch_size": 16384,
+           "engine_buffer_size": 4096, **settings}
+    path = tmp / f"{name}_settings.yaml"
+    path.write_text(yaml.safe_dump(doc))
+    return path
+
+
+def _lone_latencies(sender, sink, msgs) -> list:
+    """Send each message alone and wait for its alert: seconds each."""
+    sink.recv_timeout = 10000
+    out = []
+    for msg in msgs:
+        log_id = ParserSchema.from_bytes(msg)["logID"]
+        t0 = time.perf_counter()
+        sender.send(msg)
+        alert = DetectorSchema.from_bytes(sink.recv())
+        out.append(time.perf_counter() - t0)
+        if alert["logIDs"] != [log_id]:
+            raise AssertionError(f"lone message {log_id} got the alert {alert['logIDs']}")
+    return out
+
+
+def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> dict:
+    """The port's Service on the card: stream, decisions against the hosted
+    detector's own, latency, admin plane, restore, and the CLI."""
+    config = dict(SCORER_CONFIG) if device == "cuda" else dict(SCORER_CONFIG, device=device)
+    n_fit = config["data_use_training"]
+    fit_msgs, _ = make_messages(n_fit, anomaly_rate=0.0)
+    detect_msgs, anomalies = make_messages(SERVICE_DETECT, anomaly_rate=0.01, seed=1)
+    lone = [ParserSchema(EventID=1, template="segfault at <*> ip <*> sp <*>",
+                         variables=[hex(0xdead0000 + i), hex(0xbeef), hex(i)],
+                         logID=f"lone-{i}", logFormatVariables={"Time": "1700000000"},
+                         ).serialize() for i in range(SERVICE_LONE + 1)]
+    tmp = Path(tempfile.mkdtemp(prefix="dmsvc", dir="/tmp"))
+    try:
+        settings = ServiceSettings.from_yaml(str(service_files(
+            tmp, "svc", config, checkpoint_dir=str(tmp / "ckpt"))))
+        factory = ZmqPairSocketFactory()
+        sink = factory.create(settings.out_addr[0])
+        service = Service(settings)
+        t0 = time.perf_counter()
+        service.setup_io()
+        setup_s = time.perf_counter() - t0
+        det = service.library_component
+        runner = threading.Thread(target=service.run, name="ServiceRun", daemon=True)
+        runner.start()
+        _wait(lambda: service.engine.running and service.web_server.port, 30, "the service")
+        port = service.web_server.port
+        sender = factory.create_output(settings.engine_addr, buffer_size=1000)
+        collector = _Collector(sink)
+        collector.start()
+
+        # the main path: launch counts 0 just before, read just after
+        reset_launches()
+        t0 = time.perf_counter()
+        for i in range(0, n_fit, SERVICE_FRAME):
+            sender.send(pack_batch(fit_msgs[i:i + SERVICE_FRAME]))
+        _wait(lambda: det._fitted, 300, "the fit at the boundary")
+        fit_s = time.perf_counter() - t0
+        frames = [pack_batch(detect_msgs[i:i + SERVICE_FRAME])
+                  for i in range(0, SERVICE_DETECT, SERVICE_FRAME)]
+        lines_sent = sum(map(count_lines, fit_msgs + detect_msgs))
+        t_first = time.perf_counter()
+        for frame in frames:
+            sender.send(frame)
+
+        def settled():
+            text = _http("GET", port, "/metrics")[1]
+            return (metric_value(text, "data_read_lines_total", "svc") == lines_sent
+                    and det.pending_count() == 0
+                    and (not collector.times or time.perf_counter() - collector.times[-1] > 1.0))
+
+        _wait(settled, 120, "the stream to go quiet", interval=0.1)
+        collector.stop_flag.set()
+        collector.join(5)
+        t_last = collector.times[-1] if collector.times else float("nan")
+        text = _http("GET", port, "/metrics")[1]
+        read_lines = metric_value(text, "data_read_lines_total", "svc")
+        written_lines = metric_value(text, "data_written_lines_total", "svc")
+        alerts = _messages_of(collector.frames)
+        ids = [DetectorSchema.from_bytes(a)["logIDs"][0] for a in alerts]
+        by_id = _alerts_by_id(alerts, det._threshold)
+        received_lines = sum(map(count_lines, collector.frames))
+
+        latencies = _lone_latencies(sender, sink, lone[:SERVICE_LONE])
+        counts = read_launches()
+        variants = read_variants()["candidate_lse"]
+
+        # the hosted detector's own decisions on the same stream, scored on
+        # the engine's loop thread (launches made to compare do not count)
+        threshold = det._threshold
+        tokens, ok = det._featurize_raw_batch(detect_msgs)
+        scores = service.engine.call_in_loop(lambda: det.score_tokens(tokens))
+        want = {str(i) for i in np.flatnonzero(ok & (scores > threshold))}
+        flips = sorted(want ^ set(by_id), key=int)
+        near = [float(abs(scores[int(i)] - threshold)) for i in flips]
+
+        # the admin plane
+        health_code = _http("GET", port, "/admin/health")[0]
+        _http("POST", port, "/admin/stop")
+        stopped = not service.engine.running
+        _http("POST", port, "/admin/start")
+        _wait(lambda: service.engine.running, 10, "the engine to start again")
+        restarted = _lone_latencies(sender, sink, lone[SERVICE_LONE:])[0]
+        t0 = time.perf_counter()
+        _http("POST", port, "/admin/shutdown")
+        runner.join(30)
+        shutdown_s = time.perf_counter() - t0
+        checkpointed = (tmp / "ckpt" / "meta.json").exists()
+        sender.close()
+        sink.close()
+
+        # a fresh Service on the same settings restores the checkpoint
+        with Service(settings) as fresh:
+            restored = fresh.library_component
+            batch, _ = det._featurize_raw_batch(detect_msgs[:4096])
+            restore = dict(threshold_equal=restored._threshold == threshold,
+                           bit_equal=bool(np.array_equal(restored.score_tokens(batch),
+                                                         det.score_tokens(batch))))
+
+        cli = phase_service_cli(tmp, config, fit_msgs, detect_msgs[:SERVICE_CLI_DETECT])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    recall = len(anomalies & set(by_id)) / max(1, len(anomalies))
+    result = dict(
+        card=smi, setup_s=setup_s, fit_s=fit_s, n_detect=SERVICE_DETECT,
+        socket_lines_per_s=SERVICE_DETECT / (t_last - t_first),
+        in_process_lines_per_s=frames_lines_per_s,
+        lone_p50_ms=float(np.percentile(latencies, 50) * 1e3),
+        lone_p99_ms=float(np.percentile(latencies, 99) * 1e3),
+        lines_sent=lines_sent, read_lines=read_lines, written_lines=written_lines,
+        received_alert_lines=received_lines, alerts=len(ids), unique_alerts=len(set(ids)),
+        anomalies=len(anomalies), recall=recall,
+        precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
+        threshold=threshold, decision_flips=len(flips), flip_distances=near,
+        launches=counts["candidate_lse"], launch_counts=counts, variants=variants,
+        health=health_code, stop_start={"stopped": stopped, "alert_ms": restarted * 1e3},
+        shutdown_s=shutdown_s, checkpointed=checkpointed, restore=restore, cli=cli)
+    emit("service", **result)
+    failures = []
+    if read_lines != lines_sent:
+        failures.append(f"read {read_lines} lines of {lines_sent} sent")
+    if written_lines != received_lines:
+        failures.append(f"wrote {written_lines} alert lines, received {received_lines}")
+    if len(set(ids)) != len(ids):
+        failures.append("an alert was received twice")
+    if recall < 0.9:
+        failures.append(f"recall {recall}")
+    if near and max(near) >= 1e-2:
+        failures.append(f"decisions differ from the detector's beyond 1e-2: {near}")
+    if counts["candidate_lse"] < 1 or counts["flash_forward"] or counts["flash_dq"] \
+            or counts["flash_dkv"]:
+        failures.append(f"launches {counts}")
+    if device == "cuda":
+        try:
+            check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"], "service")
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if health_code != 200 or not stopped or runner.is_alive() or shutdown_s > 30:
+        failures.append("the admin plane")
+    if not (checkpointed and restore["threshold_equal"] and restore["bit_equal"]):
+        failures.append(f"the shutdown checkpoint and its restore: {restore}")
+    if cli["returncode"] != 0 or cli["alerts"] < 1:
+        failures.append(f"the CLI subprocess: {cli}")
+    if failures:
+        raise AssertionError(f"the service phase failed: {failures}")
+    return result
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_service_cli(tmp: Path, config: dict, fit_msgs, detect_msgs) -> dict:
+    """``python -m detectmateservice_tpu_torch.cli`` as a subprocess on the
+    same configuration: fit, the detect messages, alerts, shutdown, exit."""
+    port = _free_port()
+    settings = service_files(tmp, "cli", config, http_port=port)
+    factory = ZmqPairSocketFactory()
+    sink = factory.create(f"ipc://{tmp}/cli_out.ipc")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    with open(tmp / "cli.out", "wb") as out, open(tmp / "cli.err", "wb") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "detectmateservice_tpu_torch.cli",
+                                 "--settings", str(settings)], stdout=out, stderr=err, env=env)
+        sender = factory.create_output(f"ipc://{tmp}/cli_in.ipc", buffer_size=1000)
+        try:
+            def running():
+                if proc.poll() is not None:
+                    raise AssertionError((tmp / "cli.err").read_text()[-2000:])
+                try:
+                    return _http("GET", port, "/admin/status", 2)[1]["status"]["running"]
+                except OSError:
+                    return False
+
+            _wait(running, 300, "the CLI service", interval=0.2)
+            start_s = time.perf_counter() - t0
+            for msgs in (fit_msgs, detect_msgs):
+                for i in range(0, len(msgs), SERVICE_FRAME):
+                    sender.send(pack_batch(msgs[i:i + SERVICE_FRAME]))
+            alerts, sink.recv_timeout = [], 120000
+            while True:
+                try:
+                    alerts.extend(_messages_of([sink.recv()]))
+                except TransportTimeout:
+                    break
+                sink.recv_timeout = 3000
+            t0 = time.perf_counter()
+            _http("POST", port, "/admin/shutdown")
+            rc = proc.wait(timeout=60)
+            exit_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+            sender.close()
+            sink.close()
+    return {"returncode": rc, "start_s": start_s, "alerts": len(alerts), "exit_s": exit_s,
+            "stderr_tail": (tmp / "cli.err").read_text()[-500:]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1271,6 +1585,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8, int8_det = phase_int8_detector(mlp["lines_per_s"])
     phase_checkpoints({"gru": gru_det, "int8w_mlp": int8_det})
+    del gru_det, int8_det
+    torch.cuda.empty_cache()
+    service = phase_service(_smi, frames["lines_per_s"])
     mlp_row = lse_times[(CALL_SIZE, 128)]
     kernels = [{
         "name": "candidate_lse",
@@ -1279,11 +1596,12 @@ def main() -> int:
         "replaces": "detectmateservice_tpu/ops/scorehead.py:55",
         "launches": (mlp["launches"] + frames["launches"]
                      + logbert["launch_counts"]["candidate_lse"]
-                     + gru["launch_counts"]["candidate_lse"] + int8["launches"]),
+                     + gru["launch_counts"]["candidate_lse"] + int8["launches"]
+                     + service["launches"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
-                             "int8w_mlp": int8["launches"]},
+                             "int8w_mlp": int8["launches"], "service": service["launches"]},
         "max_abs_err": lse_err,
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
@@ -1296,7 +1614,8 @@ def main() -> int:
         "launches_by_variant": {"mlp": mlp["variants"], "mlp_frames": frames["variants"],
                                 "logbert": logbert["variants"]["candidate_lse"],
                                 "gru": gru["variants"],
-                                "int8w_mlp": int8["variants"]},
+                                "int8w_mlp": int8["variants"],
+                                "service": service["variants"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],

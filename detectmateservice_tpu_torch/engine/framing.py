@@ -9,14 +9,32 @@ The first byte 0xD7 decodes as protobuf field 26 / wire type 7, a wire type
 that does not exist, so no valid protobuf message begins with it and a
 receiver tells a batch frame from a single message by its first four bytes.
 Any frame without the magic is one message, as the native featurizer's
-count pass reads it (``native/dmfeat.c`` ``dm_count_frame_msgs``); the
-traced, tenant, shm and span frames of the JAX package are not ported.
+count pass reads it (``native/dmfeat.c`` ``dm_count_frame_msgs``).
+
+The engine also unwraps, at ingress, the wrappers of the JAX package's v2
+frame family, which share the 0xD7 lead byte:
+
+* the traced frame ``0xD7 'D' 'M' 0x02 | varint trace_len | trace block |
+  payload``, where the payload is a complete v1 wire unit: the engine strips
+  the trace block (``unwrap_trace``) and stamps none;
+* the tenant frame ``0xD7 'D' 'M' 0x04 | varint id_len | tenant id utf-8 |
+  payload``, the outermost wrapper: stripped at ingress (``unwrap_tenant``)
+  and stamped again outermost on forwarded frames (``wrap_tenant``);
+* the shm reference frame ``0xD7 'D' 'M' 0x03 | ...``, recognised by its
+  magic only: the port has no shared-memory transport, so the engine counts
+  one as a processing error and drops it.
+
+The trace block is ``trace_id (8 bytes) | varint ingest_ns | varint n_hops |
+n_hops × (varint name_len | name utf-8 | varint recv_ns | varint send_ns)``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 MAGIC = b"\xd7DM\x01"
+MAGIC_V2 = b"\xd7DM\x02"
+MAGIC_SHM = b"\xd7DM\x03"
+MAGIC_TEN = b"\xd7DM\x04"
 
 
 class FramingError(ValueError):
@@ -60,12 +78,28 @@ def pack_batch(messages: List[bytes]) -> bytes:
     return bytes(out)
 
 
+def _skip_block(data: bytes, magic: bytes) -> Optional[bytes]:
+    """What follows the length-prefixed block of a wrapper frame, or None
+    when its length is garbled or runs past the frame end."""
+    try:
+        block_len, pos = _get_varint(data, len(magic))
+    except FramingError:
+        return None
+    start = pos + block_len
+    return None if start > len(data) else data[start:]
+
+
 def frame_msg_count(data: bytes) -> int:
     """Cheap message-count estimate for burst sizing: the header varint of a
     batch frame, 1 for a single message, 0 for an empty frame or a garbled
-    header. Does not validate the body (``unpack_batch`` does)."""
+    header; tenant and traced frames count by their payload. Does not
+    validate the body (``unpack_batch`` does)."""
     if not data:
         return 0
+    for magic in (MAGIC_TEN, MAGIC_V2):
+        if data.startswith(magic):
+            payload = _skip_block(data, magic)
+            return 0 if payload is None else frame_msg_count(payload)
     if not data.startswith(MAGIC):
         return 1
     try:
@@ -92,3 +126,101 @@ def unpack_batch(data: bytes) -> Optional[List[bytes]]:
     if pos != len(data):
         raise FramingError("trailing bytes after batch frame body")
     return messages
+
+
+# -- trace blocks (v2 frames) ------------------------------------------------
+
+
+class Hop(NamedTuple):
+    """One stage transit record of a trace block."""
+
+    stage: str
+    recv_ns: int
+    send_ns: int
+
+
+class TraceContext(NamedTuple):
+    """A parsed trace block."""
+
+    trace_id: int
+    ingest_ns: int
+    hops: Tuple[Hop, ...]
+
+
+def parse_trace_block(block: bytes) -> TraceContext:
+    """Trace block bytes → TraceContext; raises FramingError on damage."""
+    if len(block) < 8:
+        raise FramingError("trace block shorter than the 8-byte trace id")
+    trace_id = int.from_bytes(block[:8], "big")
+    ingest_ns, pos = _get_varint(block, 8)
+    n_hops, pos = _get_varint(block, pos)
+    hops: List[Hop] = []
+    for _ in range(n_hops):
+        name_len, pos = _get_varint(block, pos)
+        end = pos + name_len
+        if end > len(block):
+            raise FramingError("truncated hop name in trace block")
+        try:
+            stage = block[pos:end].decode("utf-8")
+        except UnicodeDecodeError as exc:
+            raise FramingError(f"non-UTF-8 hop name in trace block: {exc}") from exc
+        recv_ns, pos = _get_varint(block, end)
+        send_ns, pos = _get_varint(block, pos)
+        hops.append(Hop(stage, recv_ns, send_ns))
+    if pos != len(block):
+        raise FramingError("trailing bytes after trace block hops")
+    return TraceContext(trace_id, ingest_ns, tuple(hops))
+
+
+def unwrap_trace(data: bytes) -> Tuple[bytes, Optional[TraceContext], bool]:
+    """v2 frame → ``(payload, trace, trace_damaged)``.
+
+    Non-v2 input passes through as ``(data, None, False)``. A garbled trace
+    block is skipped by its declared length: the payload survives and
+    ``trace_damaged`` is True. Only a declared length running past the frame
+    end raises FramingError."""
+    if not data.startswith(MAGIC_V2):
+        return data, None, False
+    trace_len, pos = _get_varint(data, len(MAGIC_V2))
+    start = pos + trace_len
+    if start > len(data):
+        raise FramingError("trace block length exceeds frame size")
+    try:
+        ctx = parse_trace_block(data[pos:start])
+    except FramingError:
+        return data[start:], None, True
+    return data[start:], ctx, False
+
+
+# -- tenant attribution --------------------------------------------------------
+
+
+def wrap_tenant(payload: bytes, tenant: str) -> bytes:
+    """Payload (any complete wire unit) → tenant frame, the tenant block
+    outermost."""
+    out = bytearray(MAGIC_TEN)
+    name = tenant.encode("utf-8")
+    _put_varint(out, len(name))
+    out += name
+    out += payload
+    return bytes(out)
+
+
+def unwrap_tenant(data: bytes) -> Tuple[bytes, Optional[str], bool]:
+    """Tenant frame → ``(payload, tenant, tenant_damaged)``.
+
+    Non-tenant input passes through as ``(data, None, False)``. An id that is
+    not valid UTF-8 is skipped by its declared length: the payload survives
+    and ``tenant_damaged`` is True. Only a declared id length running past
+    the frame end raises FramingError."""
+    if not data.startswith(MAGIC_TEN):
+        return data, None, False
+    id_len, pos = _get_varint(data, len(MAGIC_TEN))
+    start = pos + id_len
+    if start > len(data):
+        raise FramingError("tenant id length exceeds frame size")
+    try:
+        tenant = data[pos:start].decode("utf-8")
+    except UnicodeDecodeError:
+        return data[start:], None, True
+    return data[start:], tenant, False

@@ -1,0 +1,122 @@
+"""Prometheus series of the port's service host.
+
+The port's copy of the series ``detectmateservice_tpu/engine/metrics.py``
+declares that the service host and its hosted detector emit, under the same
+names, label sets and buckets: the exposition format is the observable
+contract. Every collector lives in ``REGISTRY``, a ``CollectorRegistry`` of
+the port's own and not ``prometheus_client.REGISTRY``: the JAX package
+registers the same names on the global registry, and a process that imports
+both packages must keep the two sets of series apart. ``GET /metrics``
+exposes this registry.
+
+Each series is created once, at its first use, through ``get_or_create``.
+``REGISTERED_SERIES`` maps every declared exposition name to its metric
+class.
+
+The component library imports no metrics client: a hosting Service hands
+its component this module (``CoreComponent.metrics``), and the component
+counts through the factories below.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Sequence, Type
+
+from prometheus_client import CollectorRegistry, Counter, Enum, Gauge, Histogram
+
+REGISTRY = CollectorRegistry()
+_LOCK = threading.Lock()
+_CACHE: Dict[str, object] = {}
+
+
+def get_or_create(metric_cls: Type, name: str, documentation: str,
+                  labelnames: Sequence[str] = (), **kwargs):
+    """The collector for ``name`` in ``REGISTRY``, created once."""
+    with _LOCK:
+        found = _CACHE.get(name)
+        if found is None:
+            found = metric_cls(name, documentation, labelnames=labelnames,
+                               registry=REGISTRY, **kwargs)
+            _CACHE[name] = found
+        return found
+
+
+LABELS = ("component_type", "component_id")
+REGISTERED_SERIES: Dict[str, Type] = {}
+
+
+def _series(metric_cls: Type, name: str, documentation: str,
+            labelnames: Sequence[str] = LABELS, **kwargs) -> Callable:
+    REGISTERED_SERIES[name] = metric_cls
+    return lambda: get_or_create(metric_cls, name, documentation, labelnames, **kwargs)
+
+
+# engine-owned series
+DATA_READ_BYTES = _series(Counter, "data_read_bytes_total", "Bytes read from the engine socket")
+DATA_READ_LINES = _series(Counter, "data_read_lines_total", "Lines read from the engine socket")
+DATA_WRITTEN_BYTES = _series(Counter, "data_written_bytes_total", "Bytes written to outputs")
+DATA_WRITTEN_LINES = _series(Counter, "data_written_lines_total", "Lines written to outputs")
+DATA_DROPPED_BYTES = _series(Counter, "data_dropped_bytes_total",
+                             "Bytes dropped on slow/dead outputs")
+DATA_DROPPED_LINES = _series(Counter, "data_dropped_lines_total",
+                             "Lines dropped on slow/dead outputs")
+PROCESSING_ERRORS = _series(Counter, "processing_errors_total", "Exceptions raised by process()")
+INGRESS_BACKLOG = _series(
+    Gauge, "engine_ingress_backlog",
+    "Messages drained into the current dispatch burst; pinned at "
+    "engine_batch_size means the ingress is saturated")
+OUTPUT_SEND_BACKLOG = _series(Gauge, "output_send_backlog",
+                              "Output sockets currently waiting on a full peer queue")
+
+# service-owned series
+ENGINE_RUNNING = _series(Enum, "engine_running", "Engine run state",
+                         states=["running", "stopped"])
+ENGINE_STARTS = _series(Counter, "engine_starts_total", "Engine starts")
+PROCESSING_DURATION = _series(
+    Histogram, "processing_duration_seconds", "End-to-end process() duration",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
+DATA_PROCESSED_BYTES = _series(Counter, "data_processed_bytes_total",
+                               "Bytes handed to process()")
+DATA_PROCESSED_LINES = _series(Counter, "data_processed_lines_total",
+                               "Lines handed to process()")
+BATCH_SIZE_HIST = _series(Histogram, "detector_batch_size", "Dispatched micro-batch sizes",
+                          buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+
+# self-diagnosis (engine/health.py)
+ENGINE_HEALTH_STATE = _series(Enum, "engine_health_state",
+                              "Watchdog roll-up of the per-subsystem health checks",
+                              states=["healthy", "degraded", "unhealthy"])
+HEARTBEAT_AGE = _series(Gauge, "engine_heartbeat_age_seconds",
+                        "Seconds since the named loop last stamped its heartbeat",
+                        ("component_type", "component_id", "loop"))
+BUILD_INFO = _series(Gauge, "dm_build_info",
+                     "Constant 1; the labels carry the deployed package version and the "
+                     "native kernels' feature versions",
+                     ("version", "dm_feature_version", "dmt_feature_version"))
+
+# the hosted detector's device batches (library/detectors/torch_scorer.py)
+DEVICE_LABELS = ("component_type", "component_id", "device")
+DEVICE_BATCHES = _series(Counter, "detector_device_batches_total",
+                         "Scored batches per device", DEVICE_LABELS)
+DEVICE_LINES = _series(Counter, "detector_device_lines_total",
+                       "Scored lines per device", DEVICE_LABELS)
+_DWELL_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                  0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+PATH_LABELS = ("component_type", "component_id", "path")
+BATCH_OCCUPANCY = _series(
+    Histogram, "detector_batch_occupancy",
+    "Real rows / padded bucket size per dispatched batch (1.0 = no padding)",
+    PATH_LABELS, buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+BATCH_QUEUE_WAIT = _series(
+    Histogram, "detector_queue_wait_seconds",
+    "Dispatch-call to scoring-call-start wait per batch (worker queue / inline ~0)",
+    PATH_LABELS, buckets=_DWELL_BUCKETS)
+BATCH_DEVICE_SECONDS = _series(
+    Histogram, "detector_device_seconds",
+    "Scoring-call start to host-readable scores per batch (device compute "
+    "+ readback on the device path; synchronous compute on the host path)",
+    PATH_LABELS, buckets=_DWELL_BUCKETS)
+BUCKET_SELECTED = _series(
+    Counter, "detector_bucket_selected_total",
+    "Dispatches per compile bucket and scoring path (host CPU twin vs accelerator)",
+    ("component_type", "component_id", "bucket", "path"))

@@ -237,10 +237,22 @@ class CoreComponent:
                 f"config must be a dict or CoreConfig, got {type(config).__name__}"
             )
         self.config = config
+        # what a hosting Service sets: its metric labels (so component-side
+        # error counts land in the service's processing_errors_total), its
+        # health monitor, and its metric factories (the port's
+        # engine/metrics.py module; the library imports no metrics client).
+        # A component built without a Service counts nothing.
+        self.metrics_labels: Dict[str, str] = dict(
+            component_type=getattr(config, "method_type", self.category),
+            component_id=self.name)
+        self.health_monitor: Any = None
+        self.metrics: Any = None
 
     def count_processing_errors(self, n: int, what: str) -> None:
-        """Log n per-message failures the component contained (batched
-        paths swallow per-message errors instead of raising)."""
+        """Count and log n per-message failures the component contained
+        (batched paths swallow per-message errors instead of raising)."""
+        if self.metrics is not None:
+            self.metrics.PROCESSING_ERRORS().labels(**self.metrics_labels).inc(n)
         logging.getLogger(type(self).__module__).error(
             "%s: %d %s dropped", self.name, n, what)
 

@@ -54,6 +54,15 @@ in silence. ``native_featurize: false`` featurizes every row in Python.
 JAX detector's does: in the fitted steady state one native call expands and
 featurizes the whole burst, and raw bytes are sliced only for the alerts.
 
+The engine contract of the JAX detector: ``pending_count()`` (batches in
+flight), ``drained_total()`` (batches drained, the progress counter the
+health watchdog pairs with it), and, once a Service has handed the detector
+its metric factories (``metrics``), ``detector_device_lines_total`` /
+``detector_device_batches_total`` per scored call and the occupancy,
+queue-wait and device-seconds histograms per batch. Both counters are plain
+Python integers: the watchdog reads them from its own thread and must touch
+no CUDA state.
+
 Options of the JAX detector that later slices port raise ``LibraryError``
 when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``,
 ``batch_deadline_ms > 0``, ``upload_workers > 0``.
@@ -63,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -161,16 +171,19 @@ def _padded_chunks(tokens: np.ndarray, bucket: int):
 class _InflightSlot:
     """One scored batch in the in-flight queue: ``scores`` is a host numpy
     array (host path, CPU device) or a pinned CPU tensor that a CUDA copy
-    is filling; ``event`` (None off the GPU) completes with that copy."""
+    is filling; ``event`` (None off the GPU) completes with that copy;
+    ``bucket`` is the padded row count and ``t_start`` when scoring began."""
 
-    __slots__ = ("scores", "event", "raws", "real", "path")
+    __slots__ = ("scores", "event", "raws", "real", "path", "bucket", "t_start")
 
-    def __init__(self, raws, real: int, path: str):
+    def __init__(self, raws, real: int, path: str, bucket: int):
         self.scores: Any = None
         self.event: Optional[torch.cuda.Event] = None
         self.raws = raws
         self.real = real
         self.path = path
+        self.bucket = bucket
+        self.t_start = time.monotonic()
 
 
 class _ServingModule(torch.nn.Module):
@@ -245,6 +258,11 @@ class TorchScorerDetector(CoreDetector):
         self._serve_lock = threading.Lock()
         self._parity_corpus: Optional[np.ndarray] = None
         self._int8_report: Optional[Dict[str, Any]] = None
+        # engine contract: drained batches, and the metric children the
+        # hosting Service's factories give (built at first use)
+        self._drained_total = 0
+        self._device_children: Optional[Tuple[Any, Any]] = None
+        self._batch_children: Dict[str, Tuple[Any, ...]] = {}
 
     def _validate_static_config(self) -> None:
         """Reject bad or not-yet-ported config at construction."""
@@ -691,6 +709,7 @@ class TorchScorerDetector(CoreDetector):
                 detect_idx.append(i)
         if detect_idx:
             self._dispatch(tokens[detect_idx], [batch[i] for i in detect_idx])
+            self._count_device_lines(len(detect_idx))
         return self._drain_landed()
 
     def _drain_landed(self) -> List[Optional[bytes]]:
@@ -759,6 +778,7 @@ class TorchScorerDetector(CoreDetector):
             tokens, raws = tokens[keep], kern.SpanRaws(fb.blob, fb.spans[keep])
         if len(tokens):
             self._dispatch(tokens, raws)
+            self._count_device_lines(len(tokens))
         return self._drain_landed(), n, fb.n_lines
 
     @staticmethod
@@ -829,6 +849,7 @@ class TorchScorerDetector(CoreDetector):
                 raws = [r for _, r in self._pending]
                 self._pending = []
                 self._dispatch(tokens, raws)
+                self._count_device_lines(len(raws))
 
     def _dispatch(self, tokens: np.ndarray, msgs: List[Any]) -> None:
         """Score [n, S] tokens: small batches synchronously on the CPU copy,
@@ -838,14 +859,16 @@ class TorchScorerDetector(CoreDetector):
         n = len(tokens)
         cap = self.config.host_score_max_batch
         if 0 < n <= cap and self._host_model is not None:
-            slot = _InflightSlot(msgs, n, path="host")
+            slot = _InflightSlot(msgs, n, path="host", bucket=n)
             slot.scores = self._score_host(tokens)
+            # synchronous: the scores are host-readable now
+            self._observe_batch(slot, time.monotonic() - slot.t_start)
             self._inflight.append(slot)
             self.path_counts["host"] += 1
             return
         bucket = _bucket(n, self.config.max_batch)
         for start, chunk, real in _padded_chunks(tokens, bucket):
-            slot = _InflightSlot(msgs[start:start + real], real, path="device")
+            slot = _InflightSlot(msgs[start:start + real], real, path="device", bucket=bucket)
             self._inflight.append(slot)
             self._readback(slot, self._score_dev(chunk))
             self.path_counts["device"] += 1
@@ -857,6 +880,11 @@ class TorchScorerDetector(CoreDetector):
             scores = slot.scores.numpy()[:slot.real]
         else:
             scores = np.asarray(slot.scores)[:slot.real]
+        self._drained_total += 1
+        if slot.path != "host":
+            # scoring-call start to host-readable scores (the host path
+            # recorded its synchronous time at dispatch)
+            self._observe_batch(slot, time.monotonic() - slot.t_start)
         threshold = self._threshold if self._threshold is not None else float("inf")
         hits = np.flatnonzero(scores > threshold)
         out: List[Optional[bytes]] = []
@@ -864,6 +892,52 @@ class TorchScorerDetector(CoreDetector):
             msg = ParserSchema.from_bytes(slot.raws[i])
             out.append(self._make_alert_pb(msg, float(scores[i])))
         return out
+
+    def pending_count(self) -> int:
+        """Scored batches in flight, not yet drained: while > 0 the engine
+        short-polls and calls ``drain_ready`` on each tick."""
+        return len(self._inflight)
+
+    def drained_total(self) -> int:
+        """Batches drained so far: the progress counter the health watchdog
+        pairs with ``pending_count`` to see a stuck device queue."""
+        return self._drained_total
+
+    def _count_device_lines(self, n: int) -> None:
+        """``n`` lines handed to the scorer in one call, under the
+        detector's own labels and device, as the JAX detector counts them."""
+        if self.metrics is None:
+            return
+        if self._device_children is None:
+            labels = dict(component_type=self.config.method_type, component_id=self.name,
+                          device=str(self._device))
+            self._device_children = (self.metrics.DEVICE_LINES().labels(**labels),
+                                     self.metrics.DEVICE_BATCHES().labels(**labels))
+        lines, batches = self._device_children
+        lines.inc(n)
+        batches.inc()
+
+    def _observe_batch(self, slot: _InflightSlot, device_s: float) -> None:
+        """Per-batch telemetry when its scores become host-readable:
+        occupancy (real rows over the padded bucket), the queue wait (0: the
+        port dispatches inline), the device seconds, and the bucket."""
+        if self.metrics is None:
+            return
+        children = self._batch_children.get(slot.path)
+        if children is None:
+            labels = dict(component_type=self.config.method_type, component_id=self.name,
+                          path=slot.path)
+            children = (self.metrics.BATCH_OCCUPANCY().labels(**labels),
+                        self.metrics.BATCH_QUEUE_WAIT().labels(**labels),
+                        self.metrics.BATCH_DEVICE_SECONDS().labels(**labels))
+            self._batch_children[slot.path] = children
+        occupancy, queue_wait, device_seconds = children
+        occupancy.observe(slot.real / slot.bucket)
+        queue_wait.observe(0.0)
+        device_seconds.observe(max(0.0, device_s))
+        self.metrics.BUCKET_SELECTED().labels(
+            bucket=str(slot.bucket), path=slot.path, component_type=self.config.method_type,
+            component_id=self.name).inc()
 
     def flush(self) -> List[Optional[bytes]]:
         """Idle-time drain: non-blocking on a running fit (a finished fit's
@@ -895,6 +969,7 @@ class TorchScorerDetector(CoreDetector):
         if not self._fitted:
             self.fit()
         score = float(self.score_tokens(self.featurize(input_)[None])[0])
+        self._count_device_lines(1)
         if score > self._threshold:
             output_["score"] = score
             output_["alertsObtain"].update(

@@ -1,0 +1,408 @@
+"""Service settings: YAML and environment configuration with typed addresses.
+
+The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
+
+* the fields the port's service host honours, with the JAX package's
+  defaults and bounds: identity, logging, the engine (``engine_*``), the
+  outputs (``out_*``), the admin HTTP server (``http_*``), ``config_file``,
+  ``checkpoint_dir``, the watchdog (``watchdog_*``), ``event_ring_size``,
+  ``log_format``, ``send_batch_max``, ``transport_backend`` and
+  ``dlq_max_attempts`` (the attempt budget of poison isolation);
+* ``DETECTMATE_``-prefixed environment overrides with ``__`` nesting, env
+  winning over YAML per field; strings from the environment are converted
+  to the field's type;
+* a deterministic UUIDv5 ``component_id``, stable across restarts;
+* transport addresses checked against the JAX package's scheme set.
+
+Every field of a JAX subsystem the port does not carry yet (the replica
+router, rollout, drift, capacity, the WAL and DLQ, shed, telemetry, tracing,
+zero-copy framing, TLS, fault plans, the coordinator, the mesh, the compile
+cache, profiling, multi-ingress shards and the JAX platform pin) is known
+with its default: set away from it, it raises ``SettingsError`` naming the
+field and its subsystem. So are addresses whose transport is not ported. A
+setting is never silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import sys
+import typing
+import uuid
+from typing import Any, Dict, List, Mapping, Optional
+
+import yaml
+
+ENV_PREFIX = "DETECTMATE_"
+ENV_NESTED_DELIMITER = "__"
+
+SUPPORTED_SCHEMES = ("ipc", "tcp", "tls+tcp", "nng+tcp", "nng+tls+tcp", "ws", "inproc")
+# the schemes the port's transport carries (engine/socket.py)
+PORTED_SCHEMES = ("ipc", "tcp", "inproc")
+
+
+class SettingsError(Exception):
+    """Raised for invalid service settings."""
+
+
+def _validate_addr(addr: str) -> str:
+    """Check a transport address against the supported scheme set."""
+    if "://" not in addr:
+        raise ValueError(f"address {addr!r} has no scheme; expected one of {SUPPORTED_SCHEMES}")
+    scheme, rest = addr.split("://", 1)
+    if scheme not in SUPPORTED_SCHEMES:
+        raise ValueError(f"unsupported scheme {scheme!r} in {addr!r}; "
+                         f"expected one of {SUPPORTED_SCHEMES}")
+    if not rest:
+        raise ValueError(f"address {addr!r} has an empty target")
+    if scheme in ("tcp", "tls+tcp", "nng+tcp", "nng+tls+tcp", "ws"):
+        if ":" not in rest.split("/", 1)[0]:
+            raise ValueError(f"address {addr!r} requires an explicit port")
+    return addr
+
+
+def _field(default: Any, **checks: Any) -> Any:
+    """A dataclass field with bounds (``ge``, ``gt``, ``le``), a regex
+    ``pattern`` or ``addr=True`` in its metadata."""
+    if isinstance(default, list):
+        return dataclasses.field(default_factory=list, metadata=checks)
+    return dataclasses.field(default=default, metadata=checks)
+
+
+# field -> (the JAX package's default, the subsystem it belongs to)
+UNPORTED: Dict[str, tuple] = {
+    "engine_ingress_addrs": ([], "multi-ingress shards"),
+    "tls_input": (None, "TLS"),
+    "tls_output": (None, "TLS"),
+    "engine_trace": (False, "pipeline tracing (engine_trace)"),
+    "trace_stage": (None, "pipeline tracing (engine_trace)"),
+    "trace_terminal": (None, "pipeline tracing (engine_trace)"),
+    "trace_observe_e2e": (False, "pipeline tracing (engine_trace)"),
+    "trace_slowest": (32, "pipeline tracing (engine_trace)"),
+    "trace_sampled": (128, "pipeline tracing (engine_trace)"),
+    "trace_sample_every": (64, "pipeline tracing (engine_trace)"),
+    "zero_copy_framing": (False, "zero-copy framing"),
+    "zero_copy_slots": (32, "zero-copy framing"),
+    "zero_copy_slot_bytes": (262144, "zero-copy framing"),
+    "backend": ("auto", "the JAX platform pin (the detector's device is set by "
+                        "`device` in its component config)"),
+    "mesh_shape": (None, "the device mesh"),
+    "profile_dir": (None, "profiling"),
+    "profile_max_captures": (4, "profiling"),
+    "recompile_alert_enabled": (True, "the compile ledger"),
+    "coordinator_address": (None, "the coordinator"),
+    "num_processes": (1, "the coordinator"),
+    "process_id": (0, "the coordinator"),
+    "router_replicas": ([], "the replica router"),
+    "router_admin_urls": ([], "the replica router"),
+    "router_policy": ("least_backlog", "the replica router"),
+    "router_drain_timeout_s": (5.0, "the replica router"),
+    "router_credit_window": (64, "the replica router"),
+    "router_health_interval_s": (2.0, "the replica router"),
+    "rollout_enabled": (False, "rollout"),
+    "rollout_dir": (None, "rollout"),
+    "rollout_interval_s": (600.0, "rollout"),
+    "rollout_sample_ratio": (0.05, "rollout"),
+    "rollout_sample_capacity": (4096, "rollout"),
+    "rollout_min_fit_rows": (256, "rollout"),
+    "rollout_train_epochs": (1, "rollout"),
+    "rollout_min_shadow_samples": (512, "rollout"),
+    "rollout_shadow_timeout_s": (300.0, "rollout"),
+    "rollout_max_mean_delta": (0.25, "rollout"),
+    "rollout_max_flip_ratio": (0.01, "rollout"),
+    "rollout_auto_promote": (True, "rollout"),
+    "rollout_keep_checkpoints": (4, "rollout"),
+    "drift_enabled": (False, "drift"),
+    "drift_interval_s": (30.0, "drift"),
+    "drift_baseline_size": (512, "drift"),
+    "drift_min_rows": (64, "drift"),
+    "drift_ks_threshold": (0.25, "drift"),
+    "drift_psi_threshold": (0.2, "drift"),
+    "drift_feature_psi_threshold": (0.25, "drift"),
+    "drift_trigger_intervals": (3, "drift"),
+    "drift_clear_intervals": (2, "drift"),
+    "drift_min_cycle_interval_s": (900.0, "drift"),
+    "capacity_enabled": (False, "capacity"),
+    "capacity_interval_s": (15.0, "capacity"),
+    "capacity_probe_rows": (256, "capacity"),
+    "capacity_probe_idle_s": (30.0, "capacity"),
+    "capacity_window_s": (60.0, "capacity"),
+    "durable_ingress": (False, "the WAL"),
+    "wal_dir": (None, "the WAL"),
+    "wal_segment_bytes": (64 * 1024 * 1024, "the WAL"),
+    "wal_fsync_interval_ms": (50.0, "the WAL"),
+    "wal_retain_bytes": (1024 * 1024 * 1024, "the WAL"),
+    "wal_retain_age_s": (86400.0, "the WAL"),
+    "wal_on_disk_error": ("degrade", "the WAL"),
+    "fault_plan_file": (None, "fault plans"),
+    "dlq_max_frames": (1024, "the DLQ"),
+    "dlq_dir": (None, "the DLQ"),
+    "compile_cache_enabled": (False, "the compile cache"),
+    "compile_cache_dir": (None, "the compile cache"),
+    "shed_enabled": (False, "shed"),
+    "tenants_file": (None, "shed"),
+    "tenant_default_tier": ("best_effort", "shed"),
+    "tenant_default_rate": (10000.0, "shed"),
+    "tenant_default_burst": (None, "shed"),
+    "shed_tenant_buckets": (16, "shed"),
+    "shed_retry_after_ms": (100.0, "shed"),
+    "shed_ladder_backlog_t1": (256.0, "shed"),
+    "shed_ladder_backlog_t2": (1024.0, "shed"),
+    "shed_ladder_backlog_t3": (4096.0, "shed"),
+    "shed_ladder_recovery_intervals": (2, "shed"),
+    "telemetry_addr": (None, "telemetry"),
+    "telemetry_queue_size": (4096, "telemetry"),
+    "telemetry_flush_interval_ms": (50.0, "telemetry"),
+    "telemetry_collector": (False, "telemetry"),
+    "telemetry_collector_addr": (None, "telemetry"),
+    "telemetry_sample_healthy_ratio": (0.05, "telemetry"),
+    "telemetry_slo_ms": (1000.0, "telemetry"),
+    "telemetry_settle_ms": (200.0, "telemetry"),
+    "telemetry_trace_timeout_s": (5.0, "telemetry"),
+    "telemetry_retain_traces": (256, "telemetry"),
+    "telemetry_otlp_url": (None, "telemetry"),
+}
+
+
+@dataclasses.dataclass
+class ServiceSettings:
+    """Per-process service configuration: the JAX package's fields that the
+    port honours, with their defaults and bounds."""
+
+    # -- identity ---------------------------------------------------------
+    component_name: Optional[str] = None
+    component_id: Optional[str] = None
+    component_type: str = "core"
+    component_config_class: Optional[str] = None
+
+    # -- logging ----------------------------------------------------------
+    log_level: str = "INFO"
+    log_dir: str = "./logs"
+    log_to_console: bool = True
+    log_to_file: bool = True
+    # "json" renders every log record as one JSON object per line
+    log_format: str = _field("plain", pattern="^(plain|json)$")
+
+    # -- engine data channel ----------------------------------------------
+    engine_addr: str = _field("ipc:///tmp/detectmate.engine.ipc", addr=True)
+    engine_autostart: bool = True
+    engine_recv_timeout: int = _field(100, ge=1)  # ms
+    engine_retry_count: int = _field(10, ge=1)
+    engine_buffer_size: int = _field(100, ge=0, le=8192)
+    # 1 keeps the strict per-message contract; > 1 micro-batches, and with
+    # a process_frames component takes whole wire frames (fused-frame mode)
+    engine_batch_size: int = _field(1, ge=1, le=16384)
+    engine_batch_timeout_ms: float = _field(2.0, ge=0.0)
+    # pack up to N results per outgoing wire frame (engine/framing.py)
+    engine_frame_batch: int = _field(1, ge=1, le=8192)
+    # batch-frame detection by magic rests on protobuf payloads; a pipeline
+    # with other payloads turns it off
+    engine_frame_autodetect: bool = True
+
+    # -- outputs ----------------------------------------------------------
+    out_addr: List[str] = _field([], addr=True)
+    out_dial_timeout: int = _field(1000, ge=0)  # ms
+    # "drop": bounded retries, then drop and count; "block": flow control
+    out_backpressure: str = _field("drop", pattern="^(drop|block)$")
+    # block mode: the one window pending sends share to land after stop
+    out_stop_drain_ms: float = _field(250.0, ge=0.0, le=1500.0)
+    # the zmq transport sends frame by frame; kept for the JAX package's
+    # batched native send
+    send_batch_max: int = _field(64, ge=1, le=8192)
+    # "zmq" and "auto" give the zmq transport; "native" is not ported
+    transport_backend: str = _field("auto", pattern="^(auto|zmq|native)$")
+
+    # -- admin HTTP -------------------------------------------------------
+    http_host: str = "127.0.0.1"
+    http_port: int = _field(8000, ge=0, le=65535)
+
+    # -- component config and state -----------------------------------------
+    config_file: Optional[str] = None
+    # restore at setup_io when a checkpoint exists, save at clean shutdown
+    # and on POST /admin/checkpoint
+    checkpoint_dir: Optional[str] = None
+    # processing attempts before poison isolation drops a message
+    dlq_max_attempts: int = _field(3, ge=1, le=100)
+
+    # -- self-diagnosis (engine/health.py) --------------------------------
+    watchdog_enabled: bool = True
+    watchdog_interval_s: float = _field(2.0, ge=0.05, le=300.0)
+    watchdog_stall_seconds: float = _field(10.0, gt=0.0)
+    watchdog_unhealthy_seconds: float = _field(30.0, gt=0.0)
+    watchdog_recovery_intervals: int = _field(2, ge=1)
+    watchdog_ingest_stall_seconds: float = _field(0.0, ge=0.0)
+    event_ring_size: int = _field(512, ge=8, le=65536)
+
+    def __post_init__(self) -> None:
+        hints = typing.get_type_hints(type(self))
+        for f in dataclasses.fields(self):
+            value = _check(f, hints[f.name], getattr(self, f.name))
+            object.__setattr__(self, f.name, value)
+        for addr in [self.engine_addr, *self.out_addr]:
+            scheme = addr.split("://", 1)[0]
+            if scheme not in PORTED_SCHEMES:
+                raise SettingsError(
+                    f"address {addr!r}: the {scheme}:// transport is not ported to "
+                    f"detectmateservice_tpu_torch yet; use one of {PORTED_SCHEMES}")
+        if self.watchdog_unhealthy_seconds < self.watchdog_stall_seconds:
+            raise SettingsError(
+                "watchdog_unhealthy_seconds must be >= watchdog_stall_seconds "
+                f"({self.watchdog_unhealthy_seconds} < {self.watchdog_stall_seconds})")
+        if not self.component_id:
+            if self.component_name:
+                seed = f"detectmate/{self.component_type}/{self.component_name}"
+            else:
+                seed = f"detectmate/{self.component_type}|{self.engine_addr}"
+            self.component_id = uuid.uuid5(uuid.NAMESPACE_URL, seed).hex
+
+    # -- loading -----------------------------------------------------------
+    @classmethod
+    def model_validate(cls, data: Mapping[str, Any]) -> "ServiceSettings":
+        """Build from a mapping: every key must be a field of the port, or a
+        field of an unported subsystem left at its default."""
+        if not isinstance(data, Mapping):
+            raise SettingsError(f"settings must be a mapping, got {type(data).__name__}")
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for key, value in data.items():
+            if key in known:
+                kwargs[key] = value
+            elif key in UNPORTED:
+                default, subsystem = UNPORTED[key]
+                if value != default:
+                    raise SettingsError(
+                        f"{key}={value!r}: {subsystem} is not ported to "
+                        f"detectmateservice_tpu_torch yet; leave {key} at its default "
+                        f"({default!r})")
+            else:
+                raise SettingsError(f"unknown setting {key!r}")
+        return cls(**kwargs)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "ServiceSettings":
+        """Load from YAML, apply environment overrides (env wins), validate.
+        Exits the process on invalid settings, as the JAX CLI does."""
+        try:
+            with open(path, "r", encoding="utf-8") as fh:
+                data = yaml.safe_load(fh) or {}
+            if not isinstance(data, dict):
+                raise SettingsError(f"settings file {path} must contain a mapping")
+            return cls.model_validate(_deep_merge(data, _env_overrides()))
+        except (OSError, yaml.YAMLError, SettingsError) as exc:
+            print(f"Invalid service settings ({path}): {exc}", file=sys.stderr)
+            raise SystemExit(1) from exc
+
+    @classmethod
+    def from_env(cls) -> "ServiceSettings":
+        return cls.model_validate(_env_overrides())
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+_BOOL_WORDS = {"0": False, "off": False, "f": False, "false": False, "n": False, "no": False,
+               "1": True, "on": True, "t": True, "true": True, "y": True, "yes": True}
+
+
+def _convert(name: str, tp: Any, value: Any) -> Any:
+    """``value`` as the annotation ``tp`` wants it; a string (from the
+    environment) converts to a number or a bool, an integral float to an
+    int, an int to a float."""
+    if typing.get_origin(tp) is typing.Union:
+        if value is None:
+            return None
+        (tp,) = [a for a in typing.get_args(tp) if a is not type(None)]
+    if typing.get_origin(tp) in (list, List):
+        if not isinstance(value, (list, tuple)) or not all(isinstance(v, str) for v in value):
+            raise SettingsError(f"{name}: expected a list of strings, got {value!r}")
+        return list(value)
+    if tp is bool:
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, (int, float)) and value in (0, 1):
+            return bool(value)
+        if isinstance(value, str) and value.strip().lower() in _BOOL_WORDS:
+            return _BOOL_WORDS[value.strip().lower()]
+    elif tp is int:
+        if isinstance(value, str):
+            try:
+                value = float(value) if "." in value or "e" in value.lower() else int(value)
+            except ValueError:
+                raise SettingsError(f"{name}: expected an integer, got {value!r}") from None
+        if isinstance(value, int) and not isinstance(value, bool):
+            return value
+        if isinstance(value, float) and value.is_integer():
+            return int(value)
+    elif tp is float:
+        if isinstance(value, str):
+            try:
+                return float(value)
+            except ValueError:
+                raise SettingsError(f"{name}: expected a number, got {value!r}") from None
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            return float(value)
+    elif tp is str:
+        if isinstance(value, str):
+            return value
+    raise SettingsError(f"{name}: expected {getattr(tp, '__name__', tp)}, got {value!r}")
+
+
+def _check(f: dataclasses.Field, tp: Any, value: Any) -> Any:
+    value = _convert(f.name, tp, value)
+    meta = f.metadata
+    if value is None:
+        return value
+    if "ge" in meta and value < meta["ge"]:
+        raise SettingsError(f"{f.name}={value!r} must be >= {meta['ge']}")
+    if "gt" in meta and value <= meta["gt"]:
+        raise SettingsError(f"{f.name}={value!r} must be > {meta['gt']}")
+    if "le" in meta and value > meta["le"]:
+        raise SettingsError(f"{f.name}={value!r} must be <= {meta['le']}")
+    if "pattern" in meta and not re.match(meta["pattern"], value):
+        raise SettingsError(f"{f.name}={value!r} must match {meta['pattern']}")
+    if meta.get("addr"):
+        try:
+            for addr in (value if isinstance(value, list) else [value]):
+                _validate_addr(addr)
+        except ValueError as exc:
+            raise SettingsError(f"{f.name}: {exc}") from None
+    return value
+
+
+def _env_overrides(environ: Optional[Mapping[str, str]] = None) -> Dict[str, Any]:
+    """``DETECTMATE_*`` environment variables as a nested dict: ``__`` nests,
+    and a value that starts with ``[`` or ``{`` is read as JSON."""
+    environ = environ if environ is not None else os.environ
+    out: Dict[str, Any] = {}
+    for key, value in environ.items():
+        if not key.startswith(ENV_PREFIX):
+            continue
+        path = key[len(ENV_PREFIX):].lower().split(ENV_NESTED_DELIMITER)
+        parsed: Any = value
+        stripped = value.strip()
+        if stripped and stripped[0] in "[{":
+            try:
+                parsed = json.loads(stripped)
+            except json.JSONDecodeError:
+                parsed = value
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                break
+        else:
+            node[path[-1]] = parsed
+    return out
+
+
+def _deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge ``override`` onto ``base``, override winning per field."""
+    merged = dict(base)
+    for key, value in override.items():
+        if key in merged and isinstance(merged[key], dict) and isinstance(value, dict):
+            merged[key] = _deep_merge(merged[key], value)
+        else:
+            merged[key] = value
+    return merged

@@ -1,0 +1,141 @@
+"""Admin route table: every HTTP route the port's admin plane serves.
+
+The port's copy of the routes of ``detectmateservice_tpu/web/router.py``
+that this package's subsystems back: ``GET /metrics`` (the port's own
+registry), ``/admin/status``, ``/admin/health`` (``?deep=1`` evaluates the
+checks and answers 503 unless healthy), ``/admin/events``, and ``POST
+/admin/start``, ``/stop``, ``/shutdown``, ``/reconfigure``, ``/checkpoint``.
+The JAX package's other routes (``UNPORTED_ROUTES``) answer 404 until their
+subsystem is ported.
+
+Handlers take ``(service, query, payload)``: the parsed query string, and
+the decoded JSON body (``{}`` when empty; GET handlers get ``None``).
+``ValueError`` surfaces as HTTP 400, any other exception as HTTP 500.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from prometheus_client import CONTENT_TYPE_LATEST, generate_latest
+from prometheus_client.openmetrics import exposition as openmetrics
+
+from ..engine.metrics import REGISTRY
+
+
+@dataclass(frozen=True)
+class Response:
+    status: int
+    body: Any                        # dict/list → JSON; bytes → raw
+    content_type: str = "application/json"
+    # runs after the reply is on the wire (shutdown answers first)
+    after: Optional[Callable[[], None]] = None
+
+
+@dataclass(frozen=True)
+class Route:
+    method: str
+    path: str
+    handler: Callable[..., Response]
+    doc: str
+
+
+def _int_param(query: Dict[str, List[str]], name: str,
+               default: Optional[int] = None) -> Optional[int]:
+    raw = (query.get(name) or [None])[0]
+    if raw is None:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer") from None
+
+
+def _metrics(service, query, payload) -> Response:
+    fmt = (query.get("format") or ["prometheus"])[0]
+    if fmt == "openmetrics":
+        return Response(200, openmetrics.generate_latest(REGISTRY),
+                        openmetrics.CONTENT_TYPE_LATEST)
+    if fmt != "prometheus":
+        return Response(400, {"detail": f"unknown format {fmt!r}"})
+    return Response(200, generate_latest(REGISTRY), CONTENT_TYPE_LATEST)
+
+
+def _status(service, query, payload) -> Response:
+    return Response(200, service.status())
+
+
+def _health(service, query, payload) -> Response:
+    deep = (query.get("deep") or ["0"])[0] not in ("", "0", "false")
+    if deep:
+        # a fresh evaluation with per-check detail; 503 on anything short
+        # of healthy, for orchestration healthchecks
+        report = service.health.evaluate()
+        return Response(200 if report["state"] == "healthy" else 503, report)
+    # cheap liveness: the watchdog's last roll-up; degraded stays 200
+    state = service.health.state
+    return Response(503 if state == "unhealthy" else 200, {"state": state})
+
+
+def _events(service, query, payload) -> Response:
+    limit = _int_param(query, "limit", default=-1)
+    return Response(200, service.events.snapshot(limit if limit >= 0 else None))
+
+
+def _start(service, query, payload) -> Response:
+    return Response(200, {"detail": service.start()})
+
+
+def _stop(service, query, payload) -> Response:
+    service.stop()
+    return Response(200, {"detail": "engine stopped"})
+
+
+def _shutdown(service, query, payload) -> Response:
+    return Response(200, {"detail": "service shutting down"}, after=service.shutdown)
+
+
+def _reconfigure(service, query, payload) -> Response:
+    config = (payload or {}).get("config") or {}
+    persist = bool((payload or {}).get("persist", False))
+    updated = service.reconfigure(config, persist=persist)
+    return Response(200, {"detail": "reconfigured", "config": updated})
+
+
+def _checkpoint(service, query, payload) -> Response:
+    return Response(200, service.checkpoint())
+
+
+ROUTES: Tuple[Route, ...] = (
+    Route("GET", "/metrics", _metrics, "Prometheus exposition"),
+    Route("GET", "/admin/status", _status, "status report"),
+    Route("GET", "/admin/health", _health, "liveness / deep health"),
+    Route("GET", "/admin/events", _events, "structured event ring"),
+    Route("POST", "/admin/start", _start, "start the engine"),
+    Route("POST", "/admin/stop", _stop, "stop the engine"),
+    Route("POST", "/admin/shutdown", _shutdown, "shut the service down"),
+    Route("POST", "/admin/reconfigure", _reconfigure, "validate + apply component config"),
+    Route("POST", "/admin/checkpoint", _checkpoint, "checkpoint component state"),
+)
+
+# the JAX package's routes whose subsystems are not ported: they answer 404
+UNPORTED_ROUTES: Tuple[Tuple[str, str], ...] = (
+    ("GET", "/admin/trace"), ("GET", "/admin/traces"), ("GET", "/admin/xla"),
+    ("GET", "/admin/profile"), ("GET", "/admin/load"), ("GET", "/admin/profile/latest"),
+    ("GET", "/admin/replicas"), ("GET", "/admin/model"), ("GET", "/admin/replay"),
+    ("GET", "/admin/faults"), ("GET", "/admin/dlq"), ("GET", "/admin/drift"),
+    ("GET", "/admin/slo"), ("GET", "/admin/tenants"),
+    ("POST", "/admin/profile"), ("POST", "/admin/load"), ("POST", "/admin/replicas"),
+    ("POST", "/admin/model"), ("POST", "/admin/faults"), ("POST", "/admin/dlq"),
+    ("POST", "/admin/replay"),
+)
+
+
+def route_table() -> Dict[Tuple[str, str], Route]:
+    table: Dict[Tuple[str, str], Route] = {}
+    for route in ROUTES:
+        key = (route.method, route.path)
+        if key in table:
+            raise ValueError(f"duplicate route {key}")
+        table[key] = route
+    return table

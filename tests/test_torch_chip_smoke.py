@@ -304,6 +304,45 @@ def test_frames_phase_line_on_the_cpu(monkeypatch, capsys):
     assert result["recall"] >= 0.9
 
 
+def test_service_phase_on_the_cpu(monkeypatch, capsys):
+    """Phase 12 at a tiny width on the CPU, with a counting stand-in for the
+    fused head: every line read, every alert received once, the detector's
+    own decisions, the admin plane, the restore and the CLI subprocess."""
+    import json
+    from collections import Counter
+
+    from detectmateservice_tpu_torch.models import base
+    from detectmateservice_tpu_torch.ops import scorehead
+
+    def stand_in(h, e):
+        stand_in.launches += 1
+        stand_in.variants[f"wgmma_tma_d{h.shape[1]}_split1"] += 1
+        return scorehead.candidate_lse_reference(h, e)
+
+    stand_in.launches, stand_in.variants = 0, Counter()
+    stand_in.__name__ = "candidate_lse"
+    monkeypatch.setattr(scorehead, "candidate_lse", stand_in)
+    monkeypatch.setattr(base, "candidate_lse", stand_in)
+    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", (stand_in, *chip_smoke.KERNEL_WRAPPERS[1:]))
+    monkeypatch.setattr(chip_smoke, "SCORER_CONFIG", dict(
+        chip_smoke.SCORER_CONFIG, vocab_size=1024, dim=128, max_batch=1024,
+        data_use_training=128, dtype="float32"))
+    monkeypatch.setattr(chip_smoke, "SERVICE_DETECT", 4096)
+    monkeypatch.setattr(chip_smoke, "SERVICE_CLI_DETECT", 512)
+    result = chip_smoke.phase_service("cpu", 1.0, device="cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "service" and line["card"] == "cpu"
+    assert result["read_lines"] == result["lines_sent"] > 4096
+    assert result["written_lines"] == result["received_alert_lines"] > 0
+    assert result["alerts"] == result["unique_alerts"] and result["recall"] >= 0.9
+    # the calibration chunks and the device batches of the stream
+    assert stand_in.launches > result["launches"] > 128 // 32
+    assert result["health"] == 200 and result["checkpointed"]
+    assert result["restore"] == {"threshold_equal": True, "bit_equal": True}
+    assert result["cli"]["returncode"] == 0 and result["cli"]["alerts"] > 0
+    assert result["lone_p99_ms"] >= result["lone_p50_ms"] > 0
+
+
 def test_bench_torch_messages_match_bench_generator():
     import bench
 

@@ -644,8 +644,9 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "detectmateservice_tpu"
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """In a fresh interpreter (tests/conftest.py has already imported jax in
     this one): the port, its detector, its ops, its featurizer and framing,
-    chip_smoke.py and bench_torch.py load without any of the forbidden
-    modules."""
+    its service host (settings, config, engine, sockets, metrics, health,
+    admin plane, CLI), chip_smoke.py and bench_torch.py load without any of
+    the forbidden modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import detectmateservice_tpu_torch\n"
@@ -662,6 +663,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.utils.device\n"
         "import detectmateservice_tpu_torch.utils.matchkern\n"
         "import detectmateservice_tpu_torch.engine.framing\n"
+        "import detectmateservice_tpu_torch.settings\n"
+        "import detectmateservice_tpu_torch.config\n"
+        "import detectmateservice_tpu_torch.engine.engine\n"
+        "import detectmateservice_tpu_torch.engine.socket\n"
+        "import detectmateservice_tpu_torch.engine.metrics\n"
+        "import detectmateservice_tpu_torch.engine.health\n"
+        "import detectmateservice_tpu_torch.web.router\n"
+        "import detectmateservice_tpu_torch.web.server\n"
+        "import detectmateservice_tpu_torch.core\n"
+        "import detectmateservice_tpu_torch.cli\n"
         "import chip_smoke\n"
         "import bench_torch\n"
         "print(' '.join(sorted(sys.modules)))\n")
@@ -676,26 +687,67 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "detectmateservice_tpu_torch.ops.flash" in loaded
     assert "detectmateservice_tpu_torch.utils.checkpoint" in loaded
     assert "detectmateservice_tpu_torch.utils.matchkern" in loaded
+    assert "detectmateservice_tpu_torch.core" in loaded
+    assert "detectmateservice_tpu_torch.cli" in loaded
     assert "bench_torch" in loaded
+
+
+def _import_names(path):
+    """Every module name an import statement of ``path`` names, lazy
+    imports inside functions included."""
+    import ast
+
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
 
 
 def test_no_forbidden_import_statement_anywhere_in_the_port():
     """Lazy imports inside functions included: no source file of the port,
     and neither chip_smoke.py nor bench_torch.py, names a forbidden module in
     an import."""
-    import ast
-
     files = sorted((REPO / "detectmateservice_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 10
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                assert not any(name == f or name.startswith(f + ".") for f in _FORBIDDEN), \
-                    f"{path.relative_to(REPO)} imports {name}"
+        for name in _import_names(path):
+            assert not any(name == f or name.startswith(f + ".") for f in _FORBIDDEN), \
+                f"{path.relative_to(REPO)} imports {name}"
+
+
+# the service host's three packages, and the only modules that import them
+_SERVICE_ONLY = {"zmq": {"engine/socket.py"},
+                 "yaml": {"settings.py", "config/manager.py"},
+                 "prometheus_client": {"engine/metrics.py", "web/router.py"}}
+
+
+def test_zmq_yaml_and_prometheus_client_only_in_the_service_modules():
+    """Lazy imports included: only the named service modules of the port
+    import zmq, yaml or prometheus_client; the library, models and ops load
+    none of the three in a fresh interpreter."""
+    root = REPO / "detectmateservice_tpu_torch"
+    found = {pkg: set() for pkg in _SERVICE_ONLY}
+    for path in sorted(root.rglob("*.py")):
+        for name in _import_names(path):
+            top = name.split(".")[0]
+            if top in found:
+                found[top].add(str(path.relative_to(root)))
+    assert found == _SERVICE_ONLY
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import detectmateservice_tpu_torch.library.detectors.torch_scorer\n"
+        "import detectmateservice_tpu_torch.models.logbert\n"
+        "import detectmateservice_tpu_torch.ops.flash\n"
+        "import detectmateservice_tpu_torch.utils.checkpoint\n"
+        "import detectmateservice_tpu_torch.engine.framing\n"
+        "import bench_torch\n"
+        "print(' '.join(sorted(sys.modules)))\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
+                          text=True, cwd=REPO, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stderr
+    loaded = [m for m in proc.stdout.split() if m.split(".")[0] in _SERVICE_ONLY]
+    assert loaded == []
