@@ -78,7 +78,38 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    Then the p50 and p99 of 64 lone anomalous messages, send to alert, the
    admin plane (health 200, stop and start, shutdown with its checkpoint,
    a fresh Service restoring it bit-equal), and the CLI as a subprocess
-   (fit, 4,096 messages, alerts, ``POST /admin/shutdown``, exit 0).
+   (fit, 4,096 messages, alerts, ``POST /admin/shutdown``, exit 0);
+13. the scorer example's adaptive batching (phase ``coalesce``):
+   ``examples/scorer_settings.yaml`` and ``examples/scorer_config.yaml``
+   with ``head_impl: pallas``, the addresses under a temp directory, a free
+   HTTP port and the port's component type, and nothing else changed
+   (vocab 32768, dim 128, seq_len 32, max_batch 1024, ``score_norm:
+   position``, ``batch_deadline_ms`` 8, ``engine_batch_size`` 32). (a) The
+   port's ``Service`` in this process: the 512 fit messages and 65,536
+   messages sent one by one over zmq ipc, then 64 lone anomalous messages:
+   socket lines/s, lone p50/p99, releases by reason, mean occupancy and the
+   largest release wait (at most 8 ms + one drain tick + 2 ms), every line
+   read, each alert received once, recall >= 0.9, no decision farther than
+   1e-2 from the threshold apart from the plain (einsum-head) path on the
+   same weights, the warm set on ``GET /admin/xla``, no unexpected
+   recompile, deep health healthy after warm-up, and
+   ``detector_deadline_releases_total`` equal to ``batching_stats()``. (b)
+   The same configuration with ``bucket_retire_interval_s: 1`` in process,
+   traffic in two sizes: a bucket retires (its graph dropped), its rows pad
+   up, and persistent pressure brings it back with one expected capture;
+   ``device_hbm_bytes`` before and after. (c) The (a) stream in process
+   through ``process_batch`` with ``upload_workers: 1``: alerts identical
+   to inline dispatch (the wall-clock timestamps aside).
+
+Every device batch on a CUDA device is the replay of a CUDA graph of the
+detector's warm set (``library/detectors/graphs.py``). A capture's kernel
+launches are not counted; each replay adds the launches its capture
+recorded, so the counts below are the kernels run for scored batches, and
+every scored batch's fused-head launches must have come from replays. For
+the MLP (1024 and 32 rows), GRU (4096) and LogBERT (256) buckets, and again
+after norm calibration, int8 activation and a checkpoint restore, a replay
+is held bit-equal to the eager call on the same batch and both are timed
+(``replay_vs_eager`` lines).
 
 Each detector run resets every kernel's launch count just before and reads
 them just after; the counts must be exactly what the path launches, and
@@ -103,6 +134,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import Counter
 from pathlib import Path
@@ -113,6 +145,7 @@ import torch.nn.functional as F
 
 import bench_torch
 from detectmateservice_tpu_torch.core import Service
+from detectmateservice_tpu_torch.engine import device_obs
 from detectmateservice_tpu_torch.engine.engine import count_lines
 from detectmateservice_tpu_torch.engine.framing import pack_batch, unpack_batch
 from detectmateservice_tpu_torch.engine.socket import TransportTimeout, ZmqPairSocketFactory
@@ -169,6 +202,17 @@ SERVICE_DETECT = 65536
 SERVICE_FRAME = 512
 SERVICE_LONE = 64
 SERVICE_CLI_DETECT = 4096
+
+# the coalesce phase: the scorer example (BASELINE config #3)
+COALESCE_DETECT = 65536
+COALESCE_LONE = 64
+COALESCE_RETIRE_S = 1.0
+# one round of (b)'s traffic: a small release's rows (natural bucket 256)
+# and a large call's (a full release of the largest bucket)
+RETIRE_SMALL = 200
+RETIRE_LARGE = 1024
+# off the card (a CPU rehearsal) the example is narrowed to these values
+COALESCE_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
 
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
@@ -284,6 +328,55 @@ def read_launches() -> dict:
             "flash_forward": flash.flash_forward.launches,
             "flash_dq": flash.flash_dq.launches,
             "flash_dkv": flash.flash_dkv.launches}
+
+
+def replayed(det) -> dict:
+    """The kernel launches the detector's graph replays have added, by
+    wrapper."""
+    return {fn.__name__: det._warm.replay_launches.get(fn.__name__, 0)
+            for fn in KERNEL_WRAPPERS}
+
+
+def replay_delta(det, before: dict) -> dict:
+    """The launches the detector's graph replays added since ``before``."""
+    return {name: n - before.get(name, 0) for name, n in replayed(det).items()}
+
+
+def check_replays(got: dict, want: dict, path: str) -> dict:
+    """On a CUDA device every scored batch of a path runs as a replay: the
+    launches its replays added (``got``) must be ``want`` (wrappers not
+    named: 0)."""
+    if got != {name: want.get(name, 0) for name in got}:
+        raise AssertionError(f"the {path} path's graph replays launched {got}, "
+                             f"expected {want}")
+    return got
+
+
+def replay_vs_eager(det, label: str, stage: str, buckets, msgs) -> list:
+    """For each warm bucket: one batch of ``msgs`` through the bucket's
+    graph (``_score_dev``) and op by op (``_score_eager``), which must agree
+    bit for bit, and both timed with CUDA events (median of 10, the pinned
+    upload included). Launches made here are outside every path's count."""
+    rows = []
+    for bucket in buckets:
+        tokens, ok = det._featurize_raw_batch(msgs[:bucket])
+        if not ok.all() or len(tokens) != bucket:
+            raise AssertionError(f"{label}: {len(tokens)} featurized rows for bucket {bucket}")
+        if not det._warm.has(det._serve_kind(), bucket):
+            raise AssertionError(f"{label} ({stage}): bucket {bucket} has no valid graph")
+        replay = det._score_dev(tokens).cpu().numpy()
+        eager = det._score_eager(tokens).cpu().numpy()
+        row = dict(label=label, stage=stage, bucket=bucket, kind=det._serve_kind(),
+                   bit_equal=bool(np.array_equal(replay, eager)),
+                   max_abs_diff=float(np.abs(replay - eager).max()),
+                   replay_ms=time_ms(lambda: det._score_dev(tokens), reps=10),
+                   eager_ms=time_ms(lambda: det._score_eager(tokens), reps=10))
+        emit("replay_vs_eager", **row)
+        if not row["bit_equal"]:
+            raise AssertionError(f"{label} ({stage}): the bucket-{bucket} replay differs from "
+                                 f"the eager call by up to {row['max_abs_diff']}")
+        rows.append(row)
+    return rows
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -746,12 +839,16 @@ def phase_detector(device: str = "cuda") -> dict:
 
     # the main path: launch counts 0 just before, read just after
     reset_launches()
+    replays0 = replayed(det)
     t0 = time.perf_counter()
     assert det.process_batch(train_msgs) == []   # sync fit at the boundary
     fit_s = time.perf_counter() - t0
     alerts, detect_s = _stream(det, detect_msgs, CALL_SIZE)
     counts = read_launches()
     launches = counts["candidate_lse"]
+    graph = replay_delta(det, replays0)
+    if device == "cuda":
+        check_replays(graph, {"candidate_lse": launches}, "MLP")
 
     threshold = det._threshold
     calib_chunks = -(-SCORER_CONFIG["data_use_training"] // 32)
@@ -804,7 +901,7 @@ def phase_detector(device: str = "cuda") -> dict:
         threshold=threshold, alerts=len(by_id), anomalies=len(anomalies),
         recall=recall, precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
         launches=launches, launch_counts=counts, variants=variants,
-        calibration_launches=calib_chunks,
+        replayed_launches=graph, calibration_launches=calib_chunks,
         device_batches=det.path_counts["device"],
         einsum_alerts=len(ein_by_id), decision_flips=len(flips),
         flip_distances=near, small_fp32_max_abs_err=small_err,
@@ -863,9 +960,13 @@ def phase_frames(smi: str, device: str = "cuda") -> dict:
     # the main path: launch counts 0 just before, read just after
     det.setup_io()
     reset_launches()
+    replays0 = replayed(det)
     run = bench_torch.drive(det, N_DETECT)
     counts = read_launches()
     launches = counts["candidate_lse"]
+    graph = replay_delta(det, replays0)
+    if device == "cuda":
+        check_replays(graph, {"candidate_lse": launches}, "wire-frame")
     device_batches = det.path_counts["device"]
     if det.path_counts != {"device": 1 + N_DETECT // SCORER_CONFIG["max_batch"],
                            "host": bench_torch.N_SINGLE}:
@@ -893,7 +994,7 @@ def phase_frames(smi: str, device: str = "cuda") -> dict:
         precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
         featurize_rows=det.featurize_rows, path_counts=det.path_counts,
         launches=launches, launch_counts=counts, expected_launches=expected,
-        variants=variants)
+        variants=variants, replayed_launches=graph)
     emit("frames", **result)
     if recall < 0.9:
         raise AssertionError(f"recall on the wire-frame path is {recall}")
@@ -940,6 +1041,7 @@ def phase_logbert_detector() -> dict:
 
     # the main path: launch counts 0 just before, read just after
     reset_launches()
+    replays0 = replayed(det)
     t0 = time.perf_counter()
     assert det.process_batch(train_msgs) == []   # sync fit at the boundary
     torch.cuda.synchronize()
@@ -954,6 +1056,12 @@ def phase_logbert_detector() -> dict:
     expected = logbert_expected_launches(device_batches)
     if expected["train_steps"] != 112:
         raise AssertionError(f"the fit takes {expected['train_steps']} steps, not 112")
+    # scoring (calibration chunks and detect batches) replays graphs; the
+    # train steps run eagerly
+    graph = check_replays(replay_delta(det, replays0), {
+        "candidate_lse": expected["candidate_lse"],
+        "flash_forward": expected["flash_forward"]
+        - expected["train_steps"] * LOGBERT_CONFIG["depth"]}, "LogBERT")
     for name in ("candidate_lse", "flash_forward", "flash_dq", "flash_dkv"):
         if counts[name] != expected[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the LogBERT "
@@ -1015,7 +1123,9 @@ def phase_logbert_detector() -> dict:
         launch_counts=counts, expected_launches=expected, variants=variants,
         device_batches=device_batches, plain_alerts=len(plain_by_id),
         decision_flips=len(flips), flip_distances=near,
-        small_fp32_max_abs_err=small_err, peak_mem_gib=peak_gib)
+        small_fp32_max_abs_err=small_err, peak_mem_gib=peak_gib, replayed_launches=graph,
+        replay_vs_eager=replay_vs_eager(det, "logbert", "fitted", [LOGBERT_CALL],
+                                        detect_msgs))
     emit("logbert_detector", **result)
     return result
 
@@ -1047,6 +1157,7 @@ def phase_gru_detector(device: str = "cuda") -> tuple:
 
     # the main path: launch counts 0 just before, read just after
     reset_launches()
+    replays0 = replayed(det)
     t0 = time.perf_counter()
     assert det.process_batch(train_msgs) == []   # sync fit at the boundary
     torch.cuda.synchronize()
@@ -1054,6 +1165,9 @@ def phase_gru_detector(device: str = "cuda") -> tuple:
     fit_variants = Counter(scorehead.candidate_lse.variants)
     alerts, detect_s = _stream(det, detect_msgs, GRU_CALL)
     counts = read_launches()
+    graph = replay_delta(det, replays0)
+    if device == "cuda":
+        check_replays(graph, {"candidate_lse": counts["candidate_lse"]}, "GRU")
     variants = read_variants()["candidate_lse"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1089,9 +1203,12 @@ def phase_gru_detector(device: str = "cuda") -> tuple:
     ein_by_id = _alerts_by_id(ein_alerts, threshold)
     flips, near = _flips(by_id, ein_by_id, ein, detect_msgs, threshold, GRU_CALL)
 
-    # device time of one detect batch of real tokens, and of the recurrence
-    # with its embeddings and LayerNorm alone (CUDA events; the host's
-    # launch gaps inside the pair count)
+    # the graph captured at setup_io reads the norm buffers the fit's
+    # calibration copied into: held against the eager call
+    checks = replay_vs_eager(det, "gru", "norm_calibrated", [GRU_CALL], detect_msgs)
+    # device time of one detect batch of real tokens (the graph's replay),
+    # and of the recurrence with its embeddings and LayerNorm alone, op by
+    # op (CUDA events; the host's launch gaps inside the pair count)
     tokens, _ = det._featurize_raw_batch(detect_msgs[:GRU_CALL])
     batch_ms = time_ms(lambda: det._score_dev(tokens), reps=10)
     wide = torch.from_numpy(tokens).to(device).long()
@@ -1122,7 +1239,7 @@ def phase_gru_detector(device: str = "cuda") -> tuple:
         detect_variants=dict(detect_variants),
         device_batches=device_batches, einsum_alerts=len(ein_by_id),
         decision_flips=len(flips), flip_distances=near, small_fp32_max_abs_err=small_err,
-        peak_mem_gib=peak_gib)
+        peak_mem_gib=peak_gib, replayed_launches=graph, replay_vs_eager=checks)
     emit("gru_detector", **result)
     return result, det
 
@@ -1146,6 +1263,7 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
 
     # the main path: launch counts 0 just before, read just after
     reset_launches()
+    replays0 = replayed(det)
     t0 = time.perf_counter()
     assert det.process_batch(train_msgs) == []   # sync fit, then the gate
     torch.cuda.synchronize()
@@ -1153,6 +1271,9 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
     fit_variants = Counter(scorehead.candidate_lse.variants)
     alerts, detect_s = _stream(det, detect_msgs, CALL_SIZE)
     counts = read_launches()
+    # the float and the int8 side of the gate, like every batch, replayed
+    graph = check_replays(replay_delta(det, replays0),
+                          {"candidate_lse": counts["candidate_lse"]}, "int8w")
     variants = read_variants()["candidate_lse"]
 
     report = det._int8_report
@@ -1186,16 +1307,19 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
     bf16_by_id = _alerts_by_id(bf16_alerts, threshold)
     flips, near = _flips(by_id, bf16_by_id, bf16, detect_msgs, threshold, CALL_SIZE)
 
-    # device time of one detect batch through the int8 path (dequantized in
-    # the call) and through the float weights, in turns (int8, float, float,
-    # int8)
+    # device time of one detect batch op by op through the int8 path
+    # (dequantized in the call) and through the float weights, in turns
+    # (int8, float, float, int8), and of the int8 graph's replay
+    checks = replay_vs_eager(det, "int8w_mlp", "int8_activate",
+                             [32, CALL_SIZE, INT8_CONFIG["max_batch"]], detect_msgs)
     tokens, _ = det._featurize_raw_batch(detect_msgs[:CALL_SIZE])
     qstate = det._qstate
     batch_ms = {"int8": [], "float": []}
     for path in ("int8", "float", "float", "int8"):
         det._qstate = qstate if path == "int8" else None
-        batch_ms[path].append(time_ms(lambda: det._score_dev(tokens), reps=10))
+        batch_ms[path].append(time_ms(lambda: det._score_eager(tokens), reps=10))
     det._qstate = qstate
+    batch_ms["int8_replay"] = time_ms(lambda: det._score_dev(tokens), reps=10)
     resident = int8_resident_bytes(det)
 
     result = dict(
@@ -1205,7 +1329,8 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
         gate=report, quant_bytes=report["bytes"], resident=resident,
         launches=counts["candidate_lse"],
         expected_launches=expected, variants=variants,
-        bf16_alerts=len(bf16_by_id), decision_flips=len(flips), flip_distances=near)
+        bf16_alerts=len(bf16_by_id), decision_flips=len(flips), flip_distances=near,
+        replayed_launches=graph, replay_vs_eager=checks)
     emit("int8_detector", **result)
     if recall < 0.9:
         raise AssertionError(f"int8w recall on the injected anomalies is {recall}")
@@ -1214,19 +1339,18 @@ def phase_int8_detector(bf16_lines_per_s: float) -> tuple:
 
 def int8_resident_bytes(det) -> dict:
     """The device bytes the int8 path keeps: ``memory_allocated`` before
-    and after an ungated install of the detector's weights, beside the same
-    delta for the serving copy earlier versions built (an fp32 clone of the
-    model holding the dequantized weights), and the int8 state's own tensor
-    bytes. The detector serves its int8 path again afterwards."""
+    and after quantizing the detector's weights as an install does (the
+    state alone; an install also re-captures the warm set's graphs), beside
+    the same delta for the serving copy earlier versions built (an fp32
+    clone of the model holding the dequantized weights), and the int8
+    state's own tensor bytes."""
     torch.cuda.synchronize()
-    corpus, det._parity_corpus = det._parity_corpus, None
-    det._qstate = None
     base = torch.cuda.memory_allocated()
-    det._activate_int8(where="resident")
+    qstate = quant.quantize(det._model.state_dict(), quant.linear_weight_keys(det._model))
     torch.cuda.synchronize()
     install = torch.cuda.memory_allocated() - base
-    det._parity_corpus = corpus
-    state = sum(t.numel() * t.element_size() for leaf in det._qstate.values() for t in leaf)
+    state = sum(t.numel() * t.element_size() for leaf in qstate.values() for t in leaf)
+    del qstate
     base = torch.cuda.memory_allocated()
     copy = det._scorer.clone_model(det._model, det._device)
     copy.load_state_dict(quant.dequantize(det._qstate, det._scorer.config.dtype))
@@ -1271,6 +1395,7 @@ def phase_checkpoints(detectors: dict) -> dict:
             if label == "int8w_mlp" and not (fresh._int8_report["activated"]
                                              and fresh._int8_report["gated"] is False):
                 raise AssertionError(f"the int8w restore reported {fresh._int8_report}")
+            row["replay_vs_eager"] = replay_vs_eager(fresh, label, "restore", [4096], msgs)
             results[label] = row
     return results
 
@@ -1284,6 +1409,14 @@ def _http(method: str, port: int, path: str, timeout: float = 30.0):
         body = resp.read().decode()
         return resp.status, (json.loads(body) if "json" in resp.headers["Content-Type"]
                              else body)
+
+
+def _http_any(method: str, port: int, path: str, timeout: float = 30.0):
+    """``_http``, with an error status returned instead of raised."""
+    try:
+        return _http(method, port, path, timeout)
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read().decode())
 
 
 def metric_value(text: str, name: str, component_id: str) -> float:
@@ -1366,10 +1499,7 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
     n_fit = config["data_use_training"]
     fit_msgs, _ = make_messages(n_fit, anomaly_rate=0.0)
     detect_msgs, anomalies = make_messages(SERVICE_DETECT, anomaly_rate=0.01, seed=1)
-    lone = [ParserSchema(EventID=1, template="segfault at <*> ip <*> sp <*>",
-                         variables=[hex(0xdead0000 + i), hex(0xbeef), hex(i)],
-                         logID=f"lone-{i}", logFormatVariables={"Time": "1700000000"},
-                         ).serialize() for i in range(SERVICE_LONE + 1)]
+    lone = _lone_anomalies(SERVICE_LONE + 1, "lone")
     tmp = Path(tempfile.mkdtemp(prefix="dmsvc", dir="/tmp"))
     try:
         settings = ServiceSettings.from_yaml(str(service_files(
@@ -1391,6 +1521,7 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
 
         # the main path: launch counts 0 just before, read just after
         reset_launches()
+        replays0 = replayed(det)
         t0 = time.perf_counter()
         for i in range(0, n_fit, SERVICE_FRAME):
             sender.send(pack_batch(fit_msgs[i:i + SERVICE_FRAME]))
@@ -1424,6 +1555,7 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
         latencies = _lone_latencies(sender, sink, lone[:SERVICE_LONE])
         counts = read_launches()
         variants = read_variants()["candidate_lse"]
+        graph = replay_delta(det, replays0)
 
         # the hosted detector's own decisions on the same stream, scored on
         # the engine's loop thread (launches made to compare do not count)
@@ -1474,6 +1606,7 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
         precision=len(anomalies & set(by_id)) / max(1, len(by_id)),
         threshold=threshold, decision_flips=len(flips), flip_distances=near,
         launches=counts["candidate_lse"], launch_counts=counts, variants=variants,
+        replayed_launches=graph,
         health=health_code, stop_start={"stopped": stopped, "alert_ms": restarted * 1e3},
         shutdown_s=shutdown_s, checkpointed=checkpointed, restore=restore, cli=cli)
     emit("service", **result)
@@ -1494,6 +1627,7 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
     if device == "cuda":
         try:
             check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"], "service")
+            check_replays(graph, {"candidate_lse": counts["candidate_lse"]}, "service")
         except AssertionError as exc:
             failures.append(str(exc))
     if health_code != 200 or not stopped or runner.is_alive() or shutdown_s > 30:
@@ -1561,6 +1695,469 @@ def phase_service_cli(tmp: Path, config: dict, fit_msgs, detect_msgs) -> dict:
             "stderr_tail": (tmp / "cli.err").read_text()[-500:]}
 
 
+# -- phase 13 ----------------------------------------------------------------
+def coalesce_files(tmp: Path, device: str = "cuda", **config_changes) -> Path:
+    """``examples/scorer_settings.yaml`` and ``examples/scorer_config.yaml``
+    written under ``tmp`` with only these changes: ``head_impl: pallas``;
+    the addresses (sockets, logs, the config file) under ``tmp``; a free
+    HTTP port; the port's component type (the settings' ``component_type``
+    and the config block's name and ``method_type``); and, off the card,
+    ``device`` and ``COALESCE_CPU_CHANGES`` (plus ``config_changes``, for (b)
+    and (c)). Returns the settings file."""
+    import yaml
+
+    examples = Path(__file__).resolve().parent / "examples"
+    settings = yaml.safe_load((examples / "scorer_settings.yaml").read_text())
+    config = yaml.safe_load((examples / "scorer_config.yaml").read_text())
+    block = dict(config["detectors"]["JaxScorerDetector"], method_type="torch_scorer",
+                 head_impl="pallas", **config_changes)
+    if device != "cuda":
+        block.update(COALESCE_CPU_CHANGES, device=device)
+    (tmp / "scorer_config.yaml").write_text(yaml.safe_dump(
+        {"detectors": {"TorchScorerDetector": block}}))
+    settings.update(component_type=TORCH_SCORER, engine_addr=f"ipc://{tmp}/detector.ipc",
+                    out_addr=[f"ipc://{tmp}/output.ipc"], http_port=_free_port(),
+                    log_dir=str(tmp / "logs"), config_file=str(tmp / "scorer_config.yaml"))
+    path = tmp / "scorer_settings.yaml"
+    path.write_text(yaml.safe_dump(settings))
+    return path
+
+
+def coalesce_detector(tmp: Path, device: str = "cuda", **config_changes):
+    """A detector of the example's configuration (``coalesce_files``), in
+    process, after ``setup_io``."""
+    import yaml
+
+    coalesce_files(tmp, device, **config_changes)
+    config = yaml.safe_load((tmp / "scorer_config.yaml").read_text())
+    det = TorchScorerDetector(config=config)
+    det.setup_io()
+    return det
+
+
+def metric_samples(text: str, name: str, component_id: str) -> dict:
+    """Every sample of ``name`` with ``component_id`` in a Prometheus
+    exposition, by its label text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") and f'component_id="{component_id}"' in line:
+            labels, value = line.rsplit(" ", 1)
+            out[labels[len(name):]] = float(value)
+    return out
+
+
+def _lone_anomalies(n: int, tag: str) -> list:
+    return [ParserSchema(EventID=1, template="segfault at <*> ip <*> sp <*>",
+                         variables=[hex(0xdead0000 + i), hex(0xbeef), hex(i)],
+                         logID=f"{tag}-{i}", logFormatVariables={"Time": "1700000000"},
+                         ).serialize() for i in range(n)]
+
+
+def send_stream(addr: str, n_fit: int, n_detect: int) -> None:
+    """The upstream stage of (a), run in a process of its own (the
+    parser's place in a pipeline): on each line of standard input it sends
+    the next batch of single messages to ``addr``, the fit messages and
+    then the detect stream, and prints when the detect stream began and
+    ended (``time.perf_counter``, the host's monotonic clock). A third line
+    closes the socket."""
+    fit_msgs, _ = make_messages(n_fit, anomaly_rate=0.0)
+    detect_msgs, _ = make_messages(n_detect, anomaly_rate=0.01, seed=1)
+    sender = ZmqPairSocketFactory().create_output(addr, buffer_size=1000)
+    print("ready", flush=True)
+    sys.stdin.readline()
+    for msg in fit_msgs:
+        sender.send(msg)
+    print("fit", flush=True)
+    sys.stdin.readline()
+    t0 = time.perf_counter()
+    for msg in detect_msgs:
+        sender.send(msg)
+    print(json.dumps({"t_first": t0, "t_sent": time.perf_counter()}), flush=True)
+    sys.stdin.readline()
+    sender.close()
+
+
+def phase_coalesce(smi: str, device: str = "cuda") -> dict:
+    """The scorer example's adaptive batching on the card: (a) hosted by the
+    port's Service, (b) bucket retirement, (c) upload workers, and the
+    example's buckets replayed against the eager call."""
+    tmp = Path(tempfile.mkdtemp(prefix="dmco", dir="/tmp"))
+    try:
+        served = coalesce_service(tmp / "a", smi, device)
+        retire = coalesce_retirement(tmp / "b", served["checkpoint"], device)
+        workers = coalesce_workers(tmp / "c", served["checkpoint"], device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = dict(served, retire=retire, workers=workers)
+    result.pop("checkpoint")
+    return result
+
+
+def coalesce_service(tmp: Path, smi: str, device: str) -> dict:
+    """(a): the example hosted by the port's Service in this process."""
+    tmp.mkdir(parents=True)
+    settings = ServiceSettings.from_yaml(str(coalesce_files(tmp, device)))
+    cid = settings.component_id
+    fit_msgs, _ = make_messages(512, anomaly_rate=0.0)
+    detect_msgs, anomalies = make_messages(COALESCE_DETECT, anomaly_rate=0.01, seed=1)
+    lone = _lone_anomalies(COALESCE_LONE, "lone")
+    factory = ZmqPairSocketFactory()
+    sink = factory.create(settings.out_addr[0])
+    service = Service(settings)
+    t0 = time.perf_counter()
+    service.setup_io()
+    setup_s = time.perf_counter() - t0
+    det = service.library_component
+    if det.config.data_use_training != len(fit_msgs):
+        raise AssertionError(f"the example fits on {det.config.data_use_training} messages")
+    runner = threading.Thread(target=service.run, name="ServiceRun", daemon=True)
+    runner.start()
+    _wait(lambda: service.engine.running and service.web_server.port, 30, "the service")
+    port = service.web_server.port
+    # deep health: a check latched UNHEALTHY while the warm set was being
+    # captured recovers after two clean evaluations
+    deep_first = _http_any("GET", port, "/admin/health?deep=1")[0]
+    _wait(lambda: _http_any("GET", port, "/admin/health?deep=1")[0] == 200, 30,
+          "deep health after warm-up", interval=0.2)
+    deep_code, deep = _http_any("GET", port, "/admin/health?deep=1")
+    # the series are process-wide: this run's counts are the deltas
+    releases0, unexpected0 = _coalesce_counters(_http("GET", port, "/metrics")[1], det, cid)
+    collector = _Collector(sink)
+    collector.start()
+    # the stream comes from another process, as from an upstream stage: a
+    # sender in this interpreter would take the lock the engine loop needs
+    upstream = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.send_stream("
+         f"{settings.engine_addr!r}, {len(fit_msgs)}, {COALESCE_DETECT})"],
+        cwd=Path(__file__).resolve().parent, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+    try:
+        if upstream.stdout.readline().strip() != "ready":
+            raise AssertionError("the sender process did not start")
+
+        # the main path: launch counts 0 just before, read just after
+        reset_launches()
+        replays0 = replayed(det)
+        t0 = time.perf_counter()
+        upstream.stdin.write("fit\n")
+        upstream.stdin.flush()
+        upstream.stdout.readline()
+        _wait(lambda: det._fitted and det._fit_thread is None and det.pending_count() == 0,
+              300, "the fit at the boundary")
+        fit_s = time.perf_counter() - t0
+        lines_sent = sum(map(count_lines, fit_msgs + detect_msgs))
+        upstream.stdin.write("detect\n")
+        upstream.stdin.flush()
+        sent = json.loads(upstream.stdout.readline())
+        t_first = sent["t_first"]
+        _coalesce_settle(det, service.engine, collector)
+        upstream.stdin.write("close\n")
+        upstream.stdin.flush()
+        upstream.wait(30)
+    finally:
+        if upstream.poll() is None:
+            upstream.kill()
+            upstream.wait(10)
+    sender = factory.create_output(settings.engine_addr, buffer_size=1000)
+
+    t_last = collector.times[-1] if collector.times else float("nan")
+    stats = det.batching_stats()
+    latencies = _lone_latencies(sender, sink, lone)
+    counts = read_launches()
+    variants = read_variants()["candidate_lse"]
+    graph = replay_delta(det, replays0)
+    stats_after = det.batching_stats()
+
+    lines_sent += sum(map(count_lines, lone))
+    text = _http("GET", port, "/metrics")[1]
+    read_lines = metric_value(text, "data_read_lines_total", cid)
+    releases1, unexpected1 = _coalesce_counters(text, det, cid)
+    releases_metric = {reason: n - releases0.get(reason, 0.0)
+                       for reason, n in releases1.items() if n > releases0.get(reason, 0.0)}
+    unexpected_metric = unexpected1 - unexpected0
+    xla = _http("GET", port, "/admin/xla")[1]
+    # the ring's longest holds (queue wait: the oldest row's arrival to the
+    # scoring call, a capture on first use included)
+    slowest = sorted((s for s in xla["batches"] if s["release"]),
+                     key=lambda s: s["queue_wait_s"])[-5:]
+    alerts = _messages_of(collector.frames)
+    ids = [DetectorSchema.from_bytes(a)["logIDs"][0] for a in alerts]
+    threshold = det._threshold
+    by_id = _alerts_by_id(alerts, threshold)
+    _http("POST", port, "/admin/shutdown")
+    runner.join(30)
+    sender.close()
+    sink.close()
+
+    # the plain path: the einsum head on the same weights and statistics
+    plain = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": dict(
+        det.config.to_dict(), head_impl="einsum", data_use_training=0,
+        score_threshold=threshold, batch_deadline_ms=0.0)}})
+    plain.load_params(det._model.state_dict())
+    plain._set_norm(det._norm_mu, det._norm_sigma)
+    tokens, ok = det._featurize_raw_batch(detect_msgs)
+    scores = plain.score_tokens(tokens)
+    want = {str(i) for i in np.flatnonzero(ok & (scores > threshold))}
+    flips = sorted(want ^ set(by_id), key=int)
+    near = [float(abs(scores[int(i)] - threshold)) for i in flips]
+    checks = replay_vs_eager(det, "coalesce_mlp", "norm_calibrated",
+                             [det.config.max_batch, det.config.train_batch_size],
+                             detect_msgs) if device == "cuda" else []
+    checkpoint = tmp / "ckpt"
+    det.save_checkpoint(str(checkpoint))
+
+    tick_ms = det.drain_poll_ms
+    wait_bound_s = (det.config.batch_deadline_ms + tick_ms + 2.0) / 1e3
+    recall = len(anomalies & set(by_id)) / max(1, len(anomalies))
+    result = dict(
+        card=smi, setup_s=setup_s, fit_s=fit_s, n_detect=COALESCE_DETECT,
+        socket_lines_per_s=COALESCE_DETECT / (t_last - t_first),
+        sender_lines_per_s=COALESCE_DETECT / (sent["t_sent"] - t_first),
+        lone_p50_ms=float(np.percentile(latencies, 50) * 1e3),
+        lone_p99_ms=float(np.percentile(latencies, 99) * 1e3),
+        releases=stats["releases"], occupancy_mean=stats["occupancy_mean"],
+        max_release_wait_ms=stats["max_wait_s"] * 1e3,
+        mean_release_wait_ms=stats["mean_wait_s"] * 1e3,
+        release_wait_bound_ms=wait_bound_s * 1e3, drain_poll_ms=tick_ms,
+        dispatches=stats["dispatches"], path_counts=dict(det.path_counts),
+        releases_with_lone=stats_after["releases"], releases_metric=releases_metric,
+        lines_sent=lines_sent, read_lines=read_lines, alerts=len(ids),
+        unique_alerts=len(set(ids)), anomalies=len(anomalies), recall=recall,
+        precision=len(anomalies & set(by_id)) / max(1, len(by_id)), threshold=threshold,
+        decision_flips=len(flips), flip_distances=near,
+        launches=counts["candidate_lse"], launch_counts=counts, variants=variants,
+        replayed_launches=graph, deep_health={"first": deep_first, "after": deep_code},
+        warmup_check=[c for c in deep.get("checks", []) if c["name"] == "scorer_warmup_pending"],
+        xla={"warmup_complete": xla["warmup_complete"], "totals": xla["totals"],
+             "buckets": xla.get("buckets"), "warmup_phases": xla["warmup_phases"],
+             "keys": sorted(xla)},
+        slowest_spans=slowest, unexpected_metric=unexpected_metric,
+        warm_set=det.warm_set_spec(),
+        replay_vs_eager=checks, checkpoint=str(checkpoint))
+    emit("coalesce", **result)
+    failures = []
+    # off the card the batches score synchronously in the engine loop, which
+    # the bound does not allow for: it is held on the card
+    if device == "cuda" and stats["max_wait_s"] > wait_bound_s:
+        failures.append(f"a release waited {stats['max_wait_s'] * 1e3:.3f} ms, over "
+                        f"{wait_bound_s * 1e3} ms")
+    if read_lines != lines_sent:
+        failures.append(f"read {read_lines} lines of {lines_sent} sent")
+    if len(set(ids)) != len(ids):
+        failures.append("an alert was received twice")
+    if recall < 0.9:
+        failures.append(f"recall {recall}")
+    if near and max(near) >= 1e-2:
+        failures.append(f"decisions apart from the plain path beyond 1e-2: {near}")
+    warm = (xla.get("buckets") or {}).get("warm") or []
+    if not (xla["warmup_complete"] and {det.config.train_batch_size,
+                                        det.config.max_batch} <= set(warm)):
+        failures.append(f"/admin/xla shows no warm set: {xla.get('buckets')}")
+    if unexpected_metric or xla["totals"]["unexpected"]:
+        failures.append(f"unexpected recompiles: metric {unexpected_metric}, "
+                        f"ledger {xla['totals']['unexpected']}")
+    if deep_code != 200 or not result["warmup_check"] or \
+            result["warmup_check"][0]["status"] != "pass":
+        failures.append(f"deep health after warm-up: {deep_code} {deep}")
+    if releases_metric != {k: v for k, v in stats_after["releases"].items() if v}:
+        failures.append(f"detector_deadline_releases_total {releases_metric} against "
+                        f"batching_stats {stats_after['releases']}")
+    if counts["candidate_lse"] < 1 or counts["flash_forward"] or counts["flash_dq"] \
+            or counts["flash_dkv"]:
+        failures.append(f"launches {counts}")
+    if device == "cuda":
+        try:
+            check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"],
+                                "coalesce")
+            check_replays(graph, {"candidate_lse": counts["candidate_lse"]}, "coalesce")
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if runner.is_alive():
+        failures.append("the service did not shut down")
+    if failures:
+        raise AssertionError(f"the coalesce phase failed: {failures}")
+    return result
+
+
+def _coalesce_counters(text: str, det, cid: str) -> tuple:
+    """From a ``/metrics`` text: ``detector_deadline_releases_total`` by
+    reason (the detector's series carry its name as component_id) and
+    ``scorer_xla_recompiles_unexpected_total`` (the service's labels)."""
+    releases = {labels.split('reason="')[1].split('"')[0]: value for labels, value
+                in metric_samples(text, "detector_deadline_releases_total",
+                                  det.name).items()}
+    unexpected = sum(metric_samples(text, "scorer_xla_recompiles_unexpected_total",
+                                    cid).values())
+    return releases, unexpected
+
+
+def _coalesce_settle(det, engine, collector) -> None:
+    """Wait until the engine read no frame, and no alert came, for a second
+    and nothing is held or in flight; then stop the collector. Only Python
+    attributes are read while the stream runs: an HTTP scrape would hold
+    the interpreter lock the engine loop needs, and the release waits
+    would measure the scrape."""
+    def settled():
+        return (det.pending_count() == 0 and engine._hb_ingest.age() > 1.0
+                and (not collector.times or time.perf_counter() - collector.times[-1] > 1.0))
+
+    _wait(settled, 300, "the stream to go quiet", interval=0.1)
+    collector.stop_flag.set()
+    collector.join(5)
+
+
+def _hbm_in_use(det) -> float:
+    """``device_hbm_bytes{kind="in_use"}`` as the gauge reads it (0 off the
+    card)."""
+    if det._device.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize()
+    return float(torch.cuda.memory_stats(det._device)["allocated_bytes.all.current"])
+
+
+def coalesce_retirement(tmp: Path, checkpoint: Path, device: str) -> dict:
+    """(b): the example with ``bucket_retire_interval_s: 1``, restored from
+    (a)'s checkpoint, driven in process with releases of two sizes: small
+    ones (natural bucket 256, by deadline) and full ones (1024). While only
+    full releases come, the 256 bucket retires and its graph is dropped;
+    small releases then pad up to 1024 until the pressure resurrects 256
+    with one expected capture."""
+    tmp.mkdir(parents=True)
+    ledger = device_obs.get_ledger()
+    det = coalesce_detector(tmp, device, bucket_retire_interval_s=COALESCE_RETIRE_S)
+    det.load_checkpoint(str(checkpoint))
+    msgs, _ = make_messages(RETIRE_LARGE, anomaly_rate=0.01, seed=3)
+    small = msgs[:RETIRE_SMALL]
+    kind = det._serve_kind()
+    natural = 256
+    deadline_s = det.config.batch_deadline_ms / 1e3
+
+    def small_release():
+        det.process_batch(small)
+        time.sleep(deadline_s)
+        det.drain_ready()
+        det.flush()
+        return ledger.snapshot()["batches"][-1]
+
+    seq0 = ledger.snapshot()["totals"]
+    unexpected0 = seq0["unexpected"]
+    warmed = small_release()
+    hbm_before = _hbm_in_use(det)
+    t0 = time.monotonic()
+    large_rounds = 0
+    while time.monotonic() - t0 < 2.2 * COALESCE_RETIRE_S or natural not in det._retired_buckets:
+        det.process_batch(msgs)
+        det.flush()
+        large_rounds += 1
+        if time.monotonic() - t0 > 30:
+            raise AssertionError("no bucket retired in 30 s")
+    retired = det.batching_stats()["retired_buckets"]
+    dropped = not det._warm.has(kind, natural)
+    hbm_after = _hbm_in_use(det)
+    events0 = ledger.snapshot()["totals"]["compiles"]
+    # small releases until the bucket is back (a sweep between two of them
+    # restarts the pressure count), then one more on it
+    spans = []
+    while len(spans) < 20 and (not spans or spans[-1]["bucket"] != natural):
+        spans.append(small_release())
+    spans.append(small_release())
+    snap = ledger.snapshot()
+    new_events = snap["compiles"][-(snap["totals"]["compiles"] - events0):] \
+        if snap["totals"]["compiles"] > events0 else []
+    resurrections = [e for e in new_events if e["bucket"] == str(natural)]
+    det.flush_final()
+    result = dict(
+        warm_span=warmed, retired_buckets=retired, graph_dropped=dropped,
+        large_rounds=large_rounds, pad_up_spans=[s for s in spans if s["bucket"] > natural],
+        spans=spans, resurrection_captures=resurrections,
+        warm_after=det.batching_stats()["warm_buckets"],
+        unexpected=snap["totals"]["unexpected"] - unexpected0,
+        device_hbm_bytes_in_use={"before_retirement": hbm_before,
+                                 "after_retirement": hbm_after,
+                                 "after_resurrection": _hbm_in_use(det)},
+        buckets_retired_total=det.batching_stats()["buckets_retired_total"])
+    emit("coalesce_retire", **result)
+    failures = []
+    if warmed["bucket"] != natural or warmed["real"] != RETIRE_SMALL:
+        failures.append(f"the small release took bucket {warmed['bucket']}")
+    if natural not in retired or not dropped:
+        failures.append(f"bucket {natural} did not retire with its graph: {retired}")
+    pad_ups = len(result["pad_up_spans"])
+    if pad_ups < det.config.bucket_retire_min_dispatches or \
+            any(s["real"] != RETIRE_SMALL for s in spans):
+        failures.append(f"fewer than {det.config.bucket_retire_min_dispatches} small "
+                        f"releases padded up: {spans}")
+    if len(resurrections) != 1 or resurrections[0]["where"] != "bucket_warm" \
+            or resurrections[0]["unexpected"] \
+            or not any(s["bucket"] == natural for s in spans):
+        failures.append(f"bucket {natural} not resurrected by one expected capture: "
+                        f"{resurrections}, warm {result['warm_after']}")
+    if result["unexpected"]:
+        failures.append(f"{result['unexpected']} unexpected captures")
+    if failures:
+        raise AssertionError(f"the retirement check failed: {failures}")
+    return result
+
+
+def _timeless(alert: bytes) -> bytes:
+    """An alert with its wall-clock stamps (detection and receipt, whole
+    seconds of the host clock) zeroed; every other byte as sent."""
+    doc = DetectorSchema.from_bytes(alert)
+    doc["detectionTimestamp"] = 0
+    doc["receivedTimestamp"] = 0
+    return doc.serialize()
+
+
+def coalesce_workers(tmp: Path, checkpoint: Path, device: str) -> dict:
+    """(c): (a)'s stream and lone messages in process through
+    ``process_batch`` (calls of 1,024; each lone message flushed), inline
+    and with ``upload_workers: 1``, each detector restored from (a)'s
+    checkpoint; the alerts must be the same bytes apart from the wall-clock
+    stamps. Then the example's buckets replayed against the eager call
+    after the restore."""
+    msgs, _ = make_messages(COALESCE_DETECT, anomaly_rate=0.01, seed=1)
+    lone = _lone_anomalies(COALESCE_LONE, "lone")
+    runs = {}
+    for workers in (0, 1):
+        sub = tmp / f"workers{workers}"
+        sub.mkdir(parents=True)
+        det = coalesce_detector(sub, device, upload_workers=workers)
+        det.load_checkpoint(str(checkpoint))
+        alerts = []
+        t0 = time.perf_counter()
+        for i in range(0, len(msgs), 1024):
+            alerts.extend(det.process_batch(msgs[i:i + 1024]))
+        alerts.extend(det.flush())
+        elapsed = time.perf_counter() - t0
+        alive = [t.name for t in det._upload_threads if t.is_alive()]
+        for msg in lone:
+            alerts.extend(det.process_batch([msg]))
+            alerts.extend(det.flush())
+        alerts.extend(det.flush_final())
+        runs[workers] = dict(det=det, alerts=alerts, lines_per_s=len(msgs) / elapsed,
+                             workers_alive=alive, stats=det.batching_stats(),
+                             workers_after=[t.name for t in det._upload_threads
+                                            if t.is_alive()])
+    inline, worker = runs[0], runs[1]
+    same = [_timeless(a) for a in inline["alerts"]] == [_timeless(a) for a in worker["alerts"]]
+    checks = replay_vs_eager(inline["det"], "coalesce_mlp", "restore",
+                             [inline["det"].config.max_batch,
+                              inline["det"].config.train_batch_size],
+                             msgs) if device == "cuda" else []
+    result = dict(alerts=len(inline["alerts"]), identical=same,
+                  inline_lines_per_s=inline["lines_per_s"],
+                  workers_lines_per_s=worker["lines_per_s"],
+                  workers_alive=worker["workers_alive"], workers_after=worker["workers_after"],
+                  releases={"inline": inline["stats"]["releases"],
+                            "workers": worker["stats"]["releases"]},
+                  replay_vs_eager=checks)
+    emit("coalesce_workers", **result)
+    if not same or not inline["alerts"] or not worker["workers_alive"] \
+            or worker["workers_after"] or inline["workers_alive"]:
+        raise AssertionError(f"the upload-worker run differs from inline dispatch: {result}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1588,6 +2185,8 @@ def main() -> int:
     del gru_det, int8_det
     torch.cuda.empty_cache()
     service = phase_service(_smi, frames["lines_per_s"])
+    torch.cuda.empty_cache()
+    coalesce = phase_coalesce(_smi)
     mlp_row = lse_times[(CALL_SIZE, 128)]
     kernels = [{
         "name": "candidate_lse",
@@ -1597,11 +2196,20 @@ def main() -> int:
         "launches": (mlp["launches"] + frames["launches"]
                      + logbert["launch_counts"]["candidate_lse"]
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]
-                     + service["launches"]),
+                     + service["launches"] + coalesce["launches"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
-                             "int8w_mlp": int8["launches"], "service": service["launches"]},
+                             "int8w_mlp": int8["launches"], "service": service["launches"],
+                             "coalesce": coalesce["launches"]},
+        # every launch above ran as part of a CUDA-graph replay
+        "replayed_by_path": {"mlp": mlp["replayed_launches"]["candidate_lse"],
+                             "mlp_frames": frames["replayed_launches"]["candidate_lse"],
+                             "logbert": logbert["replayed_launches"]["candidate_lse"],
+                             "gru": gru["replayed_launches"]["candidate_lse"],
+                             "int8w_mlp": int8["replayed_launches"]["candidate_lse"],
+                             "service": service["replayed_launches"]["candidate_lse"],
+                             "coalesce": coalesce["replayed_launches"]["candidate_lse"]},
         "max_abs_err": lse_err,
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
@@ -1615,7 +2223,8 @@ def main() -> int:
                                 "logbert": logbert["variants"]["candidate_lse"],
                                 "gru": gru["variants"],
                                 "int8w_mlp": int8["variants"],
-                                "service": service["variants"]},
+                                "service": service["variants"],
+                                "coalesce": coalesce["variants"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],
@@ -1648,6 +2257,9 @@ def main() -> int:
             entry["ptxas"] = main_path_ptxas[MAIN_PATH_WGMMA[kind]]
         if kind == "forward":
             entry["training_shape"] = flash_times[("forward", "training")]
+            # the scoring launches (calibration chunks, detect batches) ran
+            # as graph replays; the train steps' launches eagerly
+            entry["replays"] = logbert["replayed_launches"][fn_name]
         kernels.append(entry)
     spilled = {name: row for name, row in main_path_ptxas.items()
                if row is None or row.get("spill_stores") or row.get("spill_loads")}

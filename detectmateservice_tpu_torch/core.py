@@ -15,15 +15,20 @@ a clean shutdown saves a checkpoint to ``checkpoint_dir``.
 
 At load, the component gets the service's metric labels, health monitor and
 metric factories, and a component with ``pending_count`` and
-``drained_total`` gets the watchdog's ``device_inflight`` check. A
+``drained_total`` gets the watchdog's ``device_inflight`` check. The
+processor hands the engine the component's ``note_tenant`` and
+``drain_poll_ms`` (the coalescing detector's seams). The process-wide
+capture ledger (``engine/device_obs.py``) is bound to the service: its
+identity, health plane (``xla_recompile_storm``, unless
+``recompile_alert_enabled`` is off) and metric factories. A
 component that cannot start (the torch detector without a CUDA device and
 without ``device: cpu``) raises from ``setup_io``, and the Service does not
 start. The admin plane reaches the component's device state only through
 the engine's loop thread (``Engine.call_in_loop``).
 
 The JAX Service's rollout, drift, capacity, telemetry, shed, fault plans,
-device observability, compile cache and coordinator are not ported (their
-settings raise in ``settings.py``).
+profiling, compile cache and coordinator are not ported (their settings
+raise in ``settings.py``).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any, Dict, Optional, Type
 
 from .config import ComponentLoader, ComponentResolver, ConfigClassLoader, ConfigManager
 from .config.manager import ConfigError
+from .engine import device_obs
 from .engine import metrics as m
 from .engine.engine import Engine, count_lines
 from .engine.health import (
@@ -74,6 +80,16 @@ class LibraryComponentProcessor:
         # engine's capability probe sees the truth through the adapter
         if callable(getattr(component, "process_frames", None)):
             self.process_frames = self._process_frames
+        # the coalescing detector's seams: the tenant of each ingress frame,
+        # and the short-poll tick its deadline needs
+        if callable(getattr(component, "note_tenant", None)):
+            self.note_tenant = component.note_tenant
+
+    @property
+    def drain_poll_ms(self):
+        """The component's short-poll hint, read when the engine loop starts
+        (None without one)."""
+        return getattr(self.component, "drain_poll_ms", None)
 
     def process(self, data: bytes) -> Optional[bytes]:
         self._processed_b.inc(len(data))
@@ -197,6 +213,14 @@ class Service:
         self.processor = LibraryComponentProcessor(self.library_component, self._labels)
         self.engine = Engine(settings, self.processor, socket_factory, self.logger,
                              health=self.health)
+        # the process-wide capture ledger takes this service's identity,
+        # health plane and metric factories: an unexpected recompile lands in
+        # the event ring, the xla_recompile_storm check and the scorer_xla_*
+        # series under its labels
+        device_obs.get_ledger().bind(
+            labels=dict(self._labels), monitor=self.health,
+            emit_events=settings.recompile_alert_enabled,
+            register_check=settings.recompile_alert_enabled, metrics=m)
         if settings.watchdog_enabled:
             self.health.start()
 

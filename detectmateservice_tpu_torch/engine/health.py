@@ -16,7 +16,12 @@ that the engine and the admin plane read:
   (``GET /admin/events``) and a log record (JSON lines with
   ``log_format: json``, :class:`JsonLogFormatter`);
 * a process-wide ``threading.excepthook`` routes uncaught thread exceptions
-  to the service logger and the event ring.
+  to the service logger and the event ring;
+* subsystems register their own heartbeats (``register_heartbeat``: the
+  detector's ``scorer_dispatch`` upload workers) and checks (``add_check``,
+  ``remove_check``: the capture ledger's ``scorer_warmup_pending`` and
+  ``xla_recompile_storm``, ``engine/device_obs.py``), and emit structured
+  events (``emit_event``).
 
 The overload ladder of the shed subsystem is not ported.
 """
@@ -279,6 +284,50 @@ class HealthMonitor:
         with self._lock:
             self._checks.append(InflightStuckCheck(
                 name, pending_fn, progress_fn, self._stall_s, self._unhealthy_s))
+
+    def register_heartbeat(self, name: str) -> Heartbeat:
+        """Create (or return) a named heartbeat exported as an
+        ``engine_heartbeat_age_seconds{loop=name}`` gauge; no check is
+        derived from it."""
+        with self._lock:
+            hb = self._heartbeats.get(name)
+            if hb is None:
+                hb = Heartbeat(name)
+                self._heartbeats[name] = hb
+                self._export_heartbeat(hb)
+            return hb
+
+    def add_check(self, check: Any) -> None:
+        """Register a check object (``.name`` and ``.evaluate(now) ->
+        (status, detail)``)."""
+        with self._lock:
+            self._checks.append(check)
+
+    def remove_check(self, name: str) -> None:
+        with self._lock:
+            self._checks = [c for c in self._checks if c.name != name]
+            self._latched.pop(name, None)
+            self._streaks.pop(name, None)
+            self._effective.pop(name, None)
+
+    def emit_event(self, event: Dict[str, Any],
+                   level: int = logging.WARNING) -> Dict[str, Any]:
+        """A subsystem's structured event (the capture ledger's
+        ``unexpected_recompile``) with this service's identity, to the event
+        ring and the logger. Takes no monitor lock."""
+        doc: Dict[str, Any] = {
+            "component_type": self._labels.get("component_type"),
+            "component_id": self._labels.get("component_id"),
+            "stage": self._stage,
+        }
+        doc.update(event)
+        doc.setdefault("trace_id", None)  # the port stamps no traces
+        if self._events is not None:
+            self._events.emit(doc)
+        if self._logger is not None:
+            self._logger.log(level, "event %s: %s", doc.get("kind", "unknown"), doc,
+                             extra={"dm_event": doc})
+        return doc
 
     # -- evaluation ------------------------------------------------------
     @property

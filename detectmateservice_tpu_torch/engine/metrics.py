@@ -120,3 +120,46 @@ BUCKET_SELECTED = _series(
     Counter, "detector_bucket_selected_total",
     "Dispatches per compile bucket and scoring path (host CPU twin vs accelerator)",
     ("component_type", "component_id", "bucket", "path"))
+
+# the capture ledger (engine/device_obs.py). The names keep "xla": they are
+# the JAX package's series, which the repo's dashboards and alert rules read
+# for both packages; on the card a "compile" is a CUDA-graph capture of one
+# warm bucket or an nvcc kernel build, and the backend label is "cuda" (or
+# "cpu" where the detector was asked for the CPU)
+XLA_LABELS = ("component_type", "component_id", "bucket", "backend")
+XLA_COMPILES = _series(
+    Counter, "scorer_xla_compiles_total",
+    "XLA backend compiles, attributed to the batch bucket that triggered them "
+    "(on CUDA: graph captures and kernel builds)", XLA_LABELS)
+XLA_COMPILE_SECONDS = _series(
+    Counter, "scorer_xla_compile_seconds_total",
+    "Wall seconds spent in XLA backend compiles per bucket (on CUDA: graph "
+    "captures and kernel builds)", XLA_LABELS)
+XLA_RECOMPILES_UNEXPECTED = _series(
+    Counter, "scorer_xla_recompiles_unexpected_total",
+    "Compiles on the dispatch path after warm-up completed (on CUDA: a dispatch "
+    "on an active bucket that found no valid graph); a nonzero rate is a "
+    "recompile storm")
+SCORER_WARMUP_SECONDS = _series(
+    Gauge, "scorer_warmup_seconds",
+    "Wall seconds of the scorer's boot warm-up by phase: aot (warm-set graph "
+    "captures), cache_load (loading already-built kernel libraries), "
+    "device_put (model build and weights to the device); set once per boot",
+    ("component_type", "component_id", "phase"))
+DEVICE_HBM = _series(
+    Gauge, "device_hbm_bytes",
+    "Device memory, kind=in_use (torch.cuda.memory_stats allocated bytes) | "
+    "limit (torch.cuda.mem_get_info total), read at scrape time",
+    ("component_type", "component_id", "device", "kind"))
+
+# the coalescer (library/detectors/torch_scorer.py): rows held across calls
+# toward a warm bucket, and why each coalesced batch left
+COALESCE_DEPTH = _series(
+    Gauge, "detector_coalesce_depth",
+    "Rows currently held by the adaptive batch coalescer, waiting for a "
+    "bucket to fill or for the oldest row's deadline")
+DEADLINE_RELEASES = _series(
+    Counter, "detector_deadline_releases_total",
+    "Coalesced micro-batch releases by reason: full (target occupancy "
+    "reached), deadline (latency budget spent), flush (idle/teardown)",
+    ("component_type", "component_id", "reason"))

@@ -54,23 +54,60 @@ in silence. ``native_featurize: false`` featurizes every row in Python.
 JAX detector's does: in the fitted steady state one native call expands and
 featurizes the whole burst, and raw bytes are sliced only for the alerts.
 
+**The warm set.** On a CUDA device every device batch is a replay of a
+CUDA graph captured per (kind, bucket) (``graphs.py``), the counterpart of
+the JAX detector's ahead-of-time executables: ``setup_io`` captures the JAX
+warm set (``(*small, train_batch_size, max_batch)``, and ``token_nlls`` at
+the train bucket for ``score_norm: position``), largest bucket first, under
+the ``scorer_warmup_pending`` check, then marks the capture ledger's warm-up
+complete (``engine/device_obs.py``). A bucket outside the set is captured as
+an expected warm-up before its first batch (``where="bucket_warm"``). Swaps
+that replace tensors re-capture what they invalidate as expected captures
+(the int8 cut-over, ``"int8_activate"``; a restore, ``"restore"``); swaps
+whose shapes agree copy into the captured storage (the position-norm
+statistics live in static buffers, and ``load_state_dict`` and the
+optimizer write the weights in place). After warm-up a dispatch that finds
+no valid graph for its bucket captures in an ``expected=False`` context:
+an unexpected recompile, counted, emitted and flagged. On the CPU a
+"capture" is the eager call, recorded the same way.
+
+**Adaptive batching** (``batch_deadline_ms > 0``): a coalescer
+(``_BatchCoalescer``) holds detect rows across ``process_batch`` /
+``process_frames`` calls and releases them toward the largest active warm
+bucket: ``full`` once the held rows reach ``batch_target_occupancy`` of it,
+``deadline`` once the oldest row has waited 0.75 × the deadline (one drain
+tick early), ``flush`` on an idle drain, at teardown, or when the deadline
+is turned off at runtime. A release buckets against the active warm set:
+its natural power-of-two bucket (warmed on first use), or, where that
+bucket was retired for underuse (``bucket_retire_interval_s``,
+``bucket_retire_min_dispatches``; its graph is dropped), the next active
+bucket up, until persistent pressure resurrects it with one expected
+capture. Tenants the engine names (``note_tenant``) are served by deficit
+round-robin. ``upload_workers > 0`` moves the upload and the replay onto
+worker threads (``scorer_dispatch`` heartbeat); the output order is the
+in-flight queue's, and a batch whose dispatch failed is counted as
+processing errors for its rows and emits nothing.
+
 The engine contract of the JAX detector: ``pending_count()`` (batches in
-flight), ``drained_total()`` (batches drained, the progress counter the
-health watchdog pairs with it), and, once a Service has handed the detector
-its metric factories (``metrics``), ``detector_device_lines_total`` /
-``detector_device_batches_total`` per scored call and the occupancy,
-queue-wait and device-seconds histograms per batch. Both counters are plain
-Python integers: the watchdog reads them from its own thread and must touch
-no CUDA state.
+flight, plus one while the coalescer holds rows), ``drain_poll_ms`` (the
+short-poll tick while rows are held), ``drained_total()`` (batches drained,
+the progress counter the health watchdog pairs with it), and, once a
+Service has handed the detector its metric factories (``metrics``),
+``detector_device_lines_total`` / ``detector_device_batches_total`` per
+scored call, the occupancy, queue-wait and device-seconds histograms per
+batch, ``detector_coalesce_depth`` and ``detector_deadline_releases_total``.
+The counters are plain Python integers: the watchdog and the admin plane
+read them from their own threads and touch no CUDA state.
 
 Options of the JAX detector that later slices port raise ``LibraryError``
-when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``,
-``batch_deadline_ms > 0``, ``upload_workers > 0``.
+when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
+import queue
 import threading
 import time
 from collections import deque
@@ -79,6 +116,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...engine import device_obs
 from ...engine.framing import FramingError, unpack_batch
 from ...models import quant
 from ...models.base import ScorerBase
@@ -95,6 +133,7 @@ from ...utils.checkpoint import (COMPATIBLE_TREE_VERSIONS, MODEL_TREE_VERSIONS,
 from ...utils.device import resolve_device
 from ..common.core import LibraryError
 from ..common.detector import BufferMode, CoreDetector, CoreDetectorConfig
+from .graphs import WarmSet
 
 logger = logging.getLogger(__name__)
 
@@ -134,11 +173,13 @@ class TorchScorerDetectorConfig(CoreDetectorConfig):
     max_batch: int = 1024
     # scored batches that may be in flight before results are forced back
     pipeline_depth: int = 8
-    batch_deadline_ms: float = 0.0        # coalescer: a later slice
+    # adaptive batching: hold rows across calls for at most this budget
+    # (0 = dispatch every call at once)
+    batch_deadline_ms: float = 0.0
     batch_target_occupancy: float = 0.9
-    bucket_retire_interval_s: float = 0.0
+    bucket_retire_interval_s: float = 0.0  # 0 = never retire a warm bucket
     bucket_retire_min_dispatches: int = 2
-    upload_workers: int = 0               # upload workers: a later slice
+    upload_workers: int = 0               # threads for upload + replay; 0 = inline
     native_featurize: bool = True         # featurize in C (utils/matchkern.py)
     featurize_threads: int = 0            # native pool width; 0 = auto
     # batches of at most this many rows score on the CPU copy of the module
@@ -169,21 +210,195 @@ def _padded_chunks(tokens: np.ndarray, bucket: int):
 
 
 class _InflightSlot:
-    """One scored batch in the in-flight queue: ``scores`` is a host numpy
-    array (host path, CPU device) or a pinned CPU tensor that a CUDA copy
-    is filling; ``event`` (None off the GPU) completes with that copy;
-    ``bucket`` is the padded row count and ``t_start`` when scoring began."""
+    """One scored (or still-scoring) batch in the in-flight queue.
 
-    __slots__ = ("scores", "event", "raws", "real", "path", "bucket", "t_start")
+    ``scores`` is a host numpy array (host path, CPU device) or a pinned CPU
+    tensor that a CUDA copy is filling; ``event`` (None off the GPU)
+    completes with that copy. ``done`` is set once ``scores`` or ``error``
+    is filled: inline dispatch fills the slot before it joins the queue, an
+    upload worker after, and the slot joins ``_inflight`` at dispatch time
+    either way, so the output order is the dispatch order.
 
-    def __init__(self, raws, real: int, path: str, bucket: int):
+    ``bucket`` is the padded row count; ``t_enqueue`` the dispatch call's
+    time (for a coalesced release the oldest held row's arrival, so the
+    queue wait includes the hold), ``t_start`` when scoring began (worker
+    pickup), and ``release`` why the coalescer let the batch go
+    (full/deadline/flush; None uncoalesced)."""
+
+    __slots__ = ("scores", "event", "raws", "real", "path", "bucket", "error", "done",
+                 "t_enqueue", "t_start", "release")
+
+    def __init__(self, raws, real: int, path: str, bucket: int,
+                 release: Optional[str] = None):
         self.scores: Any = None
         self.event: Optional[torch.cuda.Event] = None
         self.raws = raws
         self.real = real
         self.path = path
         self.bucket = bucket
-        self.t_start = time.monotonic()
+        self.error: Optional[Exception] = None
+        self.done = threading.Event()
+        self.t_enqueue = time.monotonic()
+        self.t_start: Optional[float] = None
+        self.release = release
+
+
+class _ChainRaws:
+    """Lazy concatenation of per-segment raw-message sequences (lists or
+    native ``SpanRaws``): a coalesced release merges rows of several calls
+    into one dispatch without materializing a bytes object per row; only
+    the anomalous rows are sliced out, at alert construction."""
+
+    __slots__ = ("_segs", "_len")
+
+    def __init__(self, segs):
+        self._segs = segs
+        self._len = sum(len(s) for s in segs)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            # the dispatch path's chunking slices (contiguous): stay lazy
+            start, stop, step = i.indices(self._len)
+            if step != 1:
+                return [self[j] for j in range(start, stop, step)]
+            out, pos = [], 0
+            for seg in self._segs:
+                n = len(seg)
+                lo, hi = max(start - pos, 0), min(stop - pos, n)
+                if lo < hi:
+                    out.append(seg[lo:hi])
+                pos += n
+                if pos >= stop:
+                    break
+            return _ChainRaws(out)
+        if i < 0:
+            i += self._len
+        for seg in self._segs:
+            if i < len(seg):
+                return seg[i]
+            i -= len(seg)
+        raise IndexError("row index out of range")
+
+
+class _BatchCoalescer:
+    """Deadline-aware row accumulator between the engine and the device.
+
+    Host bookkeeping with one owner (the engine thread, like the rest of the
+    dispatch path; no lock). Rows arrive as (tokens, raws) segments stamped
+    with their arrival time and the ingress frame's tenant; ``take`` pops
+    ``n`` rows, and a split segment's remainder keeps its arrival stamp (the
+    deadline is per row, not per call). With one tenant (the anonymous
+    ``None``) releases are FIFO; with several, deficit round-robin across
+    the per-tenant queues (equal quanta), FIFO within each tenant. The
+    release policy (target occupancy, warm-bucket choice, retirement) lives
+    in the detector, which owns the warm set and the capture ledger."""
+
+    __slots__ = ("deadline_s", "target_occupancy", "releases", "rows_in",
+                 "max_wait_s", "wait_sum_s", "wait_n", "retired_total",
+                 "_q", "_rr", "_deficit", "_total")
+
+    def __init__(self, deadline_s: float, target_occupancy: float) -> None:
+        self.deadline_s = deadline_s
+        self.target_occupancy = target_occupancy
+        self.releases = {"full": 0, "deadline": 0, "flush": 0}
+        self.rows_in = 0
+        self.max_wait_s = 0.0
+        self.wait_sum_s = 0.0
+        self.wait_n = 0
+        self.retired_total = 0
+        # tenant -> deque of (t_arrival, tokens [k, S], raws); emptied
+        # queues are pruned, so the table holds active tenants only
+        self._q: Dict[Optional[str], deque] = {}
+        self._rr: deque = deque()                    # rotation over _q's keys
+        self._deficit: Dict[Optional[str], int] = {}  # carried DRR deficit (rows)
+        self._total = 0
+
+    def __len__(self) -> int:
+        return self._total
+
+    def add(self, tokens: np.ndarray, raws, now: float,
+            tenant: Optional[str] = None) -> None:
+        if not len(tokens):
+            return
+        q = self._q.get(tenant)
+        if q is None:
+            q = self._q[tenant] = deque()
+            self._rr.append(tenant)
+        q.append((now, tokens, raws))
+        self._total += len(tokens)
+        self.rows_in += len(tokens)
+
+    def oldest_age(self, now: float) -> float:
+        heads = [q[0][0] for q in self._q.values() if q]
+        return 0.0 if not heads else max(0.0, now - min(heads))
+
+    def due(self, now: float) -> bool:
+        """True once the oldest row's wait reaches 0.75 of the deadline: one
+        drain tick (deadline/4) early, so the wait lands at about the
+        budget, not a tick past it."""
+        if not self._total:
+            return False
+        return self.oldest_age(now) >= self.deadline_s * 0.75
+
+    def held_by_tenant(self) -> Dict[str, int]:
+        """Held rows per tenant (the anonymous tenant as ``"default"``)."""
+        return {(t if t is not None else "default"): sum(len(seg[1]) for seg in q)
+                for t, q in self._q.items()}
+
+    def take(self, n: int):
+        """Pop ``n`` rows → (tokens [n, S], raws, t_oldest). The round starts
+        at the tenant holding the oldest row, so a deadline release carries
+        the row that tripped it; each visited tenant serves up to its
+        quantum plus carried deficit before the rotation moves on, and an
+        emptied queue forfeits its deficit and leaves the rotation."""
+        quantum = max(1, n // max(1, len(self._rr)))
+        oldest_key = min(self._q, key=lambda k: self._q[k][0][0])
+        while self._rr[0] != oldest_key:
+            self._rr.rotate(-1)
+        parts, raw_segs, got = [], [], 0
+        t_oldest = None
+        while got < n:
+            key = self._rr[0]
+            q = self._q[key]
+            deficit = self._deficit.get(key, 0) + quantum
+            take_rows = min(deficit, n - got)
+            served = 0
+            while q and served < take_rows:
+                t, tok, raws = q.popleft()
+                if t_oldest is None or t < t_oldest:
+                    t_oldest = t
+                want = take_rows - served
+                if want < len(tok):
+                    parts.append(tok[:want])
+                    raw_segs.append(raws[:want])
+                    # the remainder keeps its arrival stamp
+                    q.appendleft((t, tok[want:], raws[want:]))
+                    served += want
+                else:
+                    parts.append(tok)
+                    raw_segs.append(raws)
+                    served += len(tok)
+            got += served
+            if q:
+                self._deficit[key] = deficit - served
+                self._rr.rotate(-1)
+            else:
+                self._rr.popleft()
+                self._deficit.pop(key, None)
+                del self._q[key]
+        self._total -= n
+        tokens = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        raws = raw_segs[0] if len(raw_segs) == 1 else _ChainRaws(raw_segs)
+        return tokens, raws, t_oldest
+
+    def note_release(self, reason: str, wait_s: float) -> None:
+        self.releases[reason] = self.releases.get(reason, 0) + 1
+        self.max_wait_s = max(self.max_wait_s, wait_s)
+        self.wait_sum_s += max(0.0, wait_s)
+        self.wait_n += 1
 
 
 class _ServingModule(torch.nn.Module):
@@ -231,7 +446,11 @@ class TorchScorerDetector(CoreDetector):
         self._fitted = False
         self._norm_mu: Optional[np.ndarray] = None     # [S] fp32, "position" norm
         self._norm_sigma: Optional[np.ndarray] = None
+        # the position-norm statistics on the device, when set: the static
+        # buffers (_norm_bufs) the normscore graphs were captured on, so a
+        # new calibration is a copy into them, never a new tensor
         self._norm_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._norm_bufs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._fit_thread: Optional[threading.Thread] = None
         # guards the join-and-dispatch handoff in _finish_fit: the engine
         # thread and external callers may race it
@@ -263,6 +482,28 @@ class TorchScorerDetector(CoreDetector):
         self._drained_total = 0
         self._device_children: Optional[Tuple[Any, Any]] = None
         self._batch_children: Dict[str, Tuple[Any, ...]] = {}
+        # the capture ledger and the warm set of graphs (set in
+        # _ensure_scorer); _device_warm is the set of warm buckets the
+        # coalescer picks from, each entered through an expected capture
+        self._ledger: device_obs.CompileLedger = device_obs.get_ledger()
+        self._obs_backend = "unknown"
+        self._warm: Optional[WarmSet] = None
+        self._device_warm: set = set()
+        # adaptive batching, owned by the engine thread like _inflight
+        self._coalescer: Optional[_BatchCoalescer] = None
+        self._ingress_tenant: Optional[str] = None
+        self._retired_buckets: set = set()
+        self._retired_hits: Dict[int, int] = {}       # pad-ups per retired bucket
+        self._bucket_usage: Dict[int, int] = {}       # dispatches since the sweep
+        self._retire_last_sweep: Optional[float] = None
+        self._drop_pending: set = set()               # retired, graph still held
+        self._coalesce_gauge = None
+        self._release_children: Dict[str, Any] = {}
+        self._occ_stats = (0, 0.0)                    # (dispatches, occupancy sum)
+        # upload workers (upload_workers > 0) and their heartbeat
+        self._upload_queue: Optional[queue.Queue] = None
+        self._upload_threads: List[threading.Thread] = []
+        self._dispatch_hb = None
 
     def _validate_static_config(self) -> None:
         """Reject bad or not-yet-ported config at construction."""
@@ -299,10 +540,6 @@ class TorchScorerDetector(CoreDetector):
             "attn_impl": (cfg.model == "logbert" and cfg.attn_impl == "ring",
                           "the multi-GPU slice"),
             "mesh_shape": (cfg.mesh_shape is not None, "the multi-GPU slice"),
-            "batch_deadline_ms": (cfg.batch_deadline_ms > 0,
-                                  "the coalescer slice"),
-            "upload_workers": (cfg.upload_workers > 0,
-                               "the coalescer and upload-worker slice"),
         }
         for field, (unported, slice_name) in later.items():
             if unported:
@@ -313,18 +550,56 @@ class TorchScorerDetector(CoreDetector):
     # -- lifecycle ------------------------------------------------------
     def setup_io(self) -> None:
         """Build the native featurizer (``native_featurize``), resolve the
-        device, build the model with params initialized on it, build the
-        CUDA kernels the configured path runs (the fused head, the flash
-        kernels), and run each bucket the JAX detector compiles at boot once
-        (allocator and kernel warm-up)."""
+        device, build the model with params initialized on it and the CUDA
+        kernels the configured path runs, then capture the warm set: one
+        graph per bucket the JAX detector compiles at boot, largest first.
+
+        Under a Service the ``scorer_warmup_pending`` check is registered
+        first (deep health is UNHEALTHY until the kernels are built and the
+        set is captured). The warm-up phases go to ``scorer_warmup_seconds``:
+        ``device_put`` (model build and weights on the device),
+        ``cache_load`` (kernel libraries loaded ready-built) and ``aot``
+        (the captures)."""
+        t0 = time.monotonic()
+        ledger = self._ledger
+        monitor = ledger.monitor
+        if monitor is not None:
+            # before the kernel builds and the first capture
+            monitor.remove_check(device_obs.WarmupPendingCheck.name)
+            monitor.add_check(device_obs.WarmupPendingCheck(ledger, monitor))
+        cache0 = ledger.cache_load_seconds()
         if self.config.native_featurize:
             self._native()
         self._ensure_scorer()
+        t_warm = time.monotonic()
+        cache_load = max(0.0, ledger.cache_load_seconds() - cache0)
+        ledger.record_warmup_phase("device_put", max(0.0, t_warm - t0 - cache_load))
+        ledger.record_warmup_phase("cache_load", cache_load)
         cfg = self.config
-        small = () if cfg.host_score_max_batch > 0 else (1, 8)
-        for bucket in sorted({_bucket(b, cfg.max_batch)
-                              for b in (*small, cfg.train_batch_size, cfg.max_batch)}):
-            self._score_dev(np.zeros((bucket, cfg.seq_len), np.int32)).cpu()
+        small = () if self._host_scorer is not None else (1, 8)
+        buckets = {_bucket(b, cfg.max_batch)
+                   for b in (*small, cfg.train_batch_size, cfg.max_batch)}
+        kind = "normscore" if cfg.score_norm == "position" else "score"
+        with ledger.context(where="warmup", backend=self._obs_backend, expected=True):
+            for bucket in sorted(buckets, reverse=True):   # one pool, largest first
+                self._device_warm.add(bucket)
+                with ledger.context(bucket=bucket):
+                    self._warm.capture(kind, bucket, self._zero_upload(bucket))
+            if cfg.score_norm == "position" and self._norm_mu is None:
+                # the fit's calibration pass runs token_nlls at the train bucket
+                bucket = _bucket(cfg.train_batch_size, cfg.max_batch)
+                with ledger.context(bucket=bucket):
+                    self._warm.capture("token_nlls", bucket, self._zero_upload(bucket))
+        ledger.mark_warmup_complete()
+        ledger.record_warmup_phase("aot", time.monotonic() - t_warm)
+
+    def warm_set_spec(self) -> Dict[str, Any]:
+        """The warm bucket set as a persistable spec, key for key the JAX
+        detector's."""
+        return {"buckets": sorted(int(b) for b in self._device_warm),
+                "seq_len": int(self.config.seq_len),
+                "dtype": str(self.config.dtype),
+                "score_norm": str(self.config.score_norm)}
 
     def _ensure_scorer(self) -> None:
         if self._scorer is not None:
@@ -332,6 +607,10 @@ class TorchScorerDetector(CoreDetector):
         cfg = self.config
         self._validate_static_config()
         device = resolve_device(cfg.device)
+        self._obs_backend = device.type
+        # GET /admin/xla reports the live warm / retired sets beside the
+        # captures they explain
+        self._ledger.set_bucket_state_provider(self._bucket_state)
         if device.type == "cuda":
             # fail at boot, not per batch: nvcc missing or refusing a kernel
             # the configured path runs stops the detector here
@@ -339,6 +618,7 @@ class TorchScorerDetector(CoreDetector):
                 scorehead.build_kernel()
             if self._flash_reachable():
                 flash.build_kernel()
+        device_obs.export_hbm_gauges(self._obs_labels(), device, self.metrics)
         scorer = self._build_scorer(device)
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         self._model = scorer.init_model(device, generator)
@@ -351,6 +631,11 @@ class TorchScorerDetector(CoreDetector):
             self._host_scorer = type(scorer)(
                 dataclasses.replace(scorer.config, head_impl="einsum"))
         self._scorer = scorer
+        if cfg.score_norm == "position":
+            self._norm_bufs = (torch.zeros(cfg.seq_len, device=device),
+                               torch.ones(cfg.seq_len, device=device))
+        self._warm = WarmSet(device, self._ledger, self._obs_backend, self._eager,
+                             self._graph_ident, owner_ok=self._may_capture)
 
     def _build_scorer(self, device: torch.device) -> ScorerBase:
         """The scorer the config names, as ``jax_scorer.py`` builds it.
@@ -411,44 +696,87 @@ class TorchScorerDetector(CoreDetector):
 
     def _set_norm(self, mu: Optional[np.ndarray], sigma: Optional[np.ndarray]) -> None:
         """Install (or clear, with None) the position-norm statistics, on
-        the host and on the device."""
+        the host and on the device. On the device they are copied into the
+        static buffers the normscore graphs read, so no graph goes stale."""
         self._norm_mu, self._norm_sigma = mu, sigma
-        self._norm_dev = (None if mu is None else
-                          (torch.from_numpy(mu).to(self._device),
-                           torch.from_numpy(sigma).to(self._device)))
+        if mu is None:
+            self._norm_dev = None
+            return
+        if self._norm_bufs is None:
+            self._norm_bufs = (torch.empty(len(mu), device=self._device),
+                               torch.empty(len(sigma), device=self._device))
+        self._norm_bufs[0].copy_(torch.from_numpy(mu))
+        self._norm_bufs[1].copy_(torch.from_numpy(sigma))
+        self._norm_dev = self._norm_bufs
 
-    def _put(self, array: np.ndarray) -> torch.Tensor:
-        """Upload a token batch in the narrow wire format (uint16 ids as
-        int16 bits; the scorer widens them on the device). On a GPU the copy
-        is asynchronous from pinned memory, so it queues behind the batches
-        already in flight instead of waiting for them."""
+    def _host_tokens(self, array: np.ndarray) -> torch.Tensor:
+        """A token batch in the narrow wire format (uint16 ids as int16
+        bits; the scorer widens them on the device), as a host tensor:
+        pinned on a GPU, so its copy to the card is asynchronous."""
         narrow = narrow_tokens(array, self.config.vocab_size)
         if narrow.dtype == np.uint16:
             narrow = narrow.view(np.int16)
         tokens = torch.from_numpy(np.ascontiguousarray(narrow))
+        return tokens if self._device.type == "cpu" else tokens.pin_memory()
+
+    def _zero_upload(self, bucket: int) -> torch.Tensor:
+        return self._host_tokens(np.zeros((bucket, self.config.seq_len), np.int32))
+
+    def _put(self, array: np.ndarray) -> torch.Tensor:
+        """Upload a token batch on the device; on a GPU the copy queues
+        behind the batches already in flight instead of waiting for them."""
+        tokens = self._host_tokens(array)
         if self._device.type == "cpu":
             return tokens
-        return tokens.pin_memory().to(self._device, non_blocking=True)
+        return tokens.to(self._device, non_blocking=True)
 
-    def _score_dev(self, tokens: np.ndarray) -> torch.Tensor:
-        """Queue scoring of [n, S] tokens on the device; returns the device
-        tensor without waiting for it (positional z-scores once calibrated).
-        While the int8 path serves, its state is dequantized into the
-        compute dtype here, in the call."""
-        put = self._put(tokens)
+    def _eager(self, kind: str, tokens: torch.Tensor) -> torch.Tensor:
+        """Score device tokens the way the detector serves now, op by op:
+        what a warm-set graph captures and replays. ``normscore`` reads the
+        static norm buffers; while the int8 path serves, its state is
+        dequantized into the compute dtype here, in the call."""
+        if kind == "token_nlls":
+            return self._scorer.token_nlls(self._model, tokens)
+        norm = self._norm_bufs if kind == "normscore" else None
         if self._qstate is not None:
             params = quant.dequantize(self._qstate, self._scorer.config.dtype)
             with self._serve_lock:  # functional_call swaps the skeleton's leaves
                 return torch.func.functional_call(
                     self._serving, {f"model.{k}": v for k, v in params.items()},
-                    (put, self._norm_dev))
-        if self._norm_dev is not None:
-            mu, sigma = self._norm_dev
-            return self._scorer.normscore(self._model, put, mu, sigma)
-        return self._scorer.score(self._model, put)
+                    (tokens, norm))
+        if norm is not None:
+            return self._scorer.normscore(self._model, tokens, *norm)
+        return self._scorer.score(self._model, tokens)
+
+    def _graph_ident(self, kind: str) -> Any:
+        """The weights a graph of ``kind`` reads that a swap replaces rather
+        than overwrites: the int8 state while it serves (the calibration
+        pass scores the float weights)."""
+        return None if kind == "token_nlls" else self._qstate
+
+    def _may_capture(self) -> bool:
+        """Captures run on the thread that owns the device work: not while
+        a background fit runs, unless on the fit thread itself."""
+        fit = self._fit_thread
+        return fit is None or not fit.is_alive() or threading.current_thread() is fit
+
+    def _serve_kind(self) -> str:
+        return "normscore" if self._norm_dev is not None else "score"
+
+    def _score_dev(self, tokens: np.ndarray) -> torch.Tensor:
+        """Queue scoring of [n, S] tokens on the device (positional z-scores
+        once calibrated) through the warm set: on a GPU the replay of the
+        bucket's graph, captured first if missing or stale; returns the
+        device tensor without waiting for it."""
+        return self._warm.run(self._serve_kind(), self._host_tokens(tokens))
+
+    def _score_eager(self, tokens: np.ndarray) -> torch.Tensor:
+        """The same scores as ``_score_dev``, op by op without a graph (the
+        yardstick a replay is held against)."""
+        return self._eager(self._serve_kind(), self._put(tokens))
 
     def _token_nlls_dev(self, tokens: np.ndarray) -> torch.Tensor:
-        return self._scorer.token_nlls(self._model, self._put(tokens))
+        return self._warm.run("token_nlls", self._host_tokens(tokens))
 
     def _score_host(self, tokens: np.ndarray) -> np.ndarray:
         """Score a small batch on the CPU copy."""
@@ -625,7 +953,27 @@ class TorchScorerDetector(CoreDetector):
         (dequantized per call), gated on differential parity: the quantized
         path must flip no alert decision on the parity corpus against the
         path serving now, or the float weights serve. Without a corpus (a
-        restore before any fit) the int8 state installs ungated."""
+        restore before any fit) the int8 state installs ungated.
+
+        Both sides are judged through the path that serves, the warm set's
+        graphs: the tentative install captures the int8 path at the train
+        bucket, and afterwards every graph captured on weights that no
+        longer serve is re-captured. These are expected captures
+        (``where="int8_activate"``, or ``"restore"``)."""
+        with self._ledger.context(backend=self._obs_backend, expected=True,
+                                  where="restore" if where == "restore" else "int8_activate"):
+            report = self._activate_int8_gated(where)
+            self._recapture_stale()
+        return report
+
+    def _recapture_stale(self) -> None:
+        """Re-capture every warm-set graph captured on weights that no
+        longer serve, in the caller's ledger context."""
+        for kind, bucket in self._warm.stale():
+            with self._ledger.context(bucket=bucket):
+                self._warm.capture(kind, bucket, self._zero_upload(bucket))
+
+    def _activate_int8_gated(self, where: str) -> Dict[str, Any]:
         report: Dict[str, Any] = {"activated": False, "where": where,
                                   "rows": 0, "flips": 0, "flip_ratio": 0.0}
         threshold = float(self._threshold) if self._threshold is not None else float("inf")
@@ -658,10 +1006,15 @@ class TorchScorerDetector(CoreDetector):
 
     # -- scoring --------------------------------------------------------
     def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
-        """[N, S] → [N] fp32 scores, padded up to a bucket, on the device."""
+        """[N, S] → [N] fp32 scores, padded up to a bucket, on the device.
+        A capture here (a bucket outside the warm set) is expected
+        (``where="detect"``): the storm signal watches the batched dispatch
+        path, not this one."""
         self._ensure_scorer()
-        return self._run_chunked(self._score_dev, tokens,
-                                 _bucket(len(tokens), self.config.max_batch))
+        bucket = _bucket(len(tokens), self.config.max_batch)
+        with self._ledger.context(bucket=bucket, where="detect",
+                                  backend=self._obs_backend, expected=True):
+            return self._run_chunked(self._score_dev, tokens, bucket)
 
     @staticmethod
     def _run_chunked(fn, tokens: np.ndarray, bucket: int) -> np.ndarray:
@@ -708,9 +1061,25 @@ class TorchScorerDetector(CoreDetector):
                     self.fit()
                 detect_idx.append(i)
         if detect_idx:
-            self._dispatch(tokens[detect_idx], [batch[i] for i in detect_idx])
+            self._hold_or_dispatch(tokens[detect_idx], [batch[i] for i in detect_idx])
             self._count_device_lines(len(detect_idx))
+        self._coalesce_pump()
         return self._drain_landed()
+
+    def _hold_or_dispatch(self, tokens: np.ndarray, raws) -> None:
+        """Detect rows to the coalescer when it is on (the pump decides
+        what dispatches), else straight to the device."""
+        coalescer = self._get_coalescer()
+        if coalescer is not None:
+            coalescer.add(tokens, raws, time.monotonic(), tenant=self._ingress_tenant)
+        else:
+            self._dispatch(tokens, raws)
+
+    def note_tenant(self, tenant: Optional[str]) -> None:
+        """Engine seam: the tenant the current ingress frame was attributed
+        to; rows the coalescer takes until the next call are held under it
+        (weighted-fair releases). ``None`` clears it. Engine thread."""
+        self._ingress_tenant = tenant
 
     def _drain_landed(self) -> List[Optional[bytes]]:
         """The alerts of every in-flight batch whose scores have landed,
@@ -777,8 +1146,10 @@ class TorchScorerDetector(CoreDetector):
             keep = np.flatnonzero(fb.ok)
             tokens, raws = tokens[keep], kern.SpanRaws(fb.blob, fb.spans[keep])
         if len(tokens):
-            self._dispatch(tokens, raws)
+            # SpanRaws segments stay lazy inside the coalescer
+            self._hold_or_dispatch(tokens, raws)
             self._count_device_lines(len(tokens))
+        self._coalesce_pump()
         return self._drain_landed(), n, fb.n_lines
 
     @staticmethod
@@ -795,15 +1166,18 @@ class TorchScorerDetector(CoreDetector):
 
     def _head_ready(self) -> bool:
         """True when the oldest in-flight batch's scores are host-readable
-        without blocking."""
-        event = self._inflight[0].event
-        return event is None or event.query()
+        without blocking (an upload worker may still own its dispatch)."""
+        slot = self._inflight[0]
+        if not slot.done.is_set():
+            return False
+        return slot.error is not None or slot.event is None or slot.event.query()
 
     def drain_ready(self) -> List[Optional[bytes]]:
-        """Pop only batches whose scores already landed; never blocks on
-        the device."""
+        """Engine short-poll tick: deadline releases, then only batches
+        whose scores already landed; never blocks on the device."""
         out: List[Optional[bytes]] = []
         self._finish_fit(wait=False)
+        self._coalesce_pump()
         while self._inflight and self._head_ready():
             out.extend(self._drain_one())
         return out
@@ -848,43 +1222,317 @@ class TorchScorerDetector(CoreDetector):
                 tokens = np.stack([t for t, _ in self._pending])
                 raws = [r for _, r in self._pending]
                 self._pending = []
-                self._dispatch(tokens, raws)
+                coalescer = self._get_coalescer()
+                if coalescer is not None:
+                    # the backlog's size is whatever the fit's length made
+                    # it: through the coalescer (released by the caller's
+                    # pump) it stays on warm buckets
+                    coalescer.add(tokens, raws, time.monotonic())
+                else:
+                    self._dispatch(tokens, raws)
                 self._count_device_lines(len(raws))
 
-    def _dispatch(self, tokens: np.ndarray, msgs: List[Any]) -> None:
+    def _dispatch(self, tokens: np.ndarray, msgs: List[Any],
+                  t_enqueue: Optional[float] = None, release: Optional[str] = None) -> None:
         """Score [n, S] tokens: small batches synchronously on the CPU copy,
         the rest on the device in bucket-sized chunks whose readback is
-        queued without waiting. Every batch joins ``_inflight`` in order."""
+        queued without waiting. Every batch joins ``_inflight`` in order.
+
+        A coalesced release (``release`` set) backdates ``t_enqueue`` to the
+        oldest held row's arrival and buckets against the active warm set
+        (``_pick_device_bucket``); an uncoalesced call takes the natural
+        power-of-two bucket, warmed as an expected capture first when it is
+        outside the warm set."""
         self._ensure_scorer()
         n = len(tokens)
         cap = self.config.host_score_max_batch
         if 0 < n <= cap and self._host_model is not None:
-            slot = _InflightSlot(msgs, n, path="host", bucket=n)
+            slot = _InflightSlot(msgs, n, path="host", bucket=n, release=release)
+            if t_enqueue is not None:
+                slot.t_enqueue = t_enqueue
+            slot.t_start = time.monotonic()
             slot.scores = self._score_host(tokens)
+            slot.done.set()
             # synchronous: the scores are host-readable now
             self._observe_batch(slot, time.monotonic() - slot.t_start)
             self._inflight.append(slot)
             self.path_counts["host"] += 1
             return
-        bucket = _bucket(n, self.config.max_batch)
+        if release is not None:
+            bucket = self._pick_device_bucket(n)
+            self._bucket_usage[bucket] = self._bucket_usage.get(bucket, 0) + 1
+        else:
+            bucket = _bucket(n, self.config.max_batch)
+            if bucket not in self._device_warm:
+                self._warm_device_bucket(bucket)
+        workers = self.config.upload_workers > 0
+        if workers:
+            self._ensure_upload_workers()
         for start, chunk, real in _padded_chunks(tokens, bucket):
-            slot = _InflightSlot(msgs[start:start + real], real, path="device", bucket=bucket)
+            slot = _InflightSlot(msgs[start:start + real], real, path="device",
+                                 bucket=bucket, release=release)
+            if t_enqueue is not None:
+                slot.t_enqueue = t_enqueue
             self._inflight.append(slot)
-            self._readback(slot, self._score_dev(chunk))
             self.path_counts["device"] += 1
+            if workers:
+                self._upload_queue.put((slot, chunk))
+                continue
+            # inline: filled before returning; a dispatch error raises to the
+            # caller
+            slot.t_start = time.monotonic()
+            with self._ledger.context(bucket=bucket, backend=self._obs_backend,
+                                      where="dispatch", expected=False):
+                self._readback(slot, self._score_dev(chunk))
+            slot.done.set()
 
+    # -- adaptive batching (the coalescer) -------------------------------
+    def _get_coalescer(self) -> Optional[_BatchCoalescer]:
+        if self.config.batch_deadline_ms <= 0:
+            return None
+        if self._coalescer is None:
+            self._coalescer = _BatchCoalescer(self.config.batch_deadline_ms / 1000.0,
+                                              self.config.batch_target_occupancy)
+        return self._coalescer
+
+    def _coalesce_pump(self, force: bool = False) -> None:
+        """Release held rows, for three reasons in this order: ``full`` (the
+        held rows fill the largest active warm bucket to the target
+        occupancy), ``deadline`` (the oldest row's wait nears the budget:
+        everything held goes, in smaller buckets), ``flush`` (``force``: an
+        idle or teardown drain, or the deadline turned off at runtime).
+        Engine thread only."""
+        co = self._coalescer
+        if co is None:
+            return
+        if not len(co):
+            self._observe_coalesce_depth(0)
+            self._drop_retired_graphs()
+            return
+        if self.config.batch_deadline_ms <= 0:
+            force = True  # disabled at runtime with rows still held
+        now = time.monotonic()
+        largest = self._largest_active_bucket()
+        target = max(1, math.ceil(co.target_occupancy * largest))
+        while len(co) >= target:
+            self._release_coalesced(min(len(co), largest), "full", now)
+        if force:
+            while len(co):
+                self._release_coalesced(min(len(co), largest), "flush", now)
+        elif co.due(now):
+            while len(co):
+                self._release_coalesced(min(len(co), largest), "deadline", now)
+        self._maybe_retire_buckets(now)
+        self._drop_retired_graphs()
+        self._observe_coalesce_depth(len(co))
+
+    def _release_coalesced(self, n: int, reason: str, now: float) -> None:
+        tokens, raws, t_oldest = self._coalescer.take(n)
+        self._coalescer.note_release(reason, now - t_oldest)
+        self._count_release(reason)
+        self._dispatch(tokens, raws, t_enqueue=t_oldest, release=reason)
+
+    def _active_buckets(self) -> List[int]:
+        """The warm set without the retired buckets, ascending."""
+        return sorted(self._device_warm - self._retired_buckets)
+
+    def _largest_active_bucket(self) -> int:
+        active = self._active_buckets()
+        return active[-1] if active else _bucket(self.config.max_batch,
+                                                 self.config.max_batch)
+
+    def _pick_device_bucket(self, n: int) -> int:
+        """The bucket of a coalesced release: the natural power-of-two
+        bucket when active (warmed on first use, an expected capture), the
+        next active bucket up while the natural one is retired (padding
+        costs less than bringing back a bucket the usage window judged
+        underused), and the natural one resurrected once it keeps winning
+        best fit (the traffic's shape came back)."""
+        natural = _bucket(n, self.config.max_batch)
+        if natural in self._device_warm and natural not in self._retired_buckets:
+            return natural
+        if natural in self._retired_buckets:
+            hits = self._retired_hits.get(natural, 0) + 1
+            self._retired_hits[natural] = hits
+            if hits <= max(1, self.config.bucket_retire_min_dispatches):
+                # the largest bucket never retires: an active bucket at
+                # least this large exists
+                for b in self._active_buckets():
+                    if b >= natural:
+                        return b
+            self._retired_buckets.discard(natural)
+            self._drop_pending.discard(natural)
+        self._warm_device_bucket(natural)
+        return natural
+
+    def _warm_device_bucket(self, bucket: int) -> None:
+        """Capture a device bucket before the dispatch path uses it, as an
+        expected capture (``where="bucket_warm"``): neither warm-set growth
+        nor a resurrection may page as a recompile storm. The capture stalls
+        this one release; later batches of the bucket replay."""
+        self._ensure_scorer()
+        with self._ledger.context(bucket=bucket, backend=self._obs_backend,
+                                  where="bucket_warm", expected=True):
+            if not self._warm.has(self._serve_kind(), bucket):
+                self._warm.capture(self._serve_kind(), bucket, self._zero_upload(bucket))
+        self._device_warm.add(bucket)
+
+    def _maybe_retire_buckets(self, now: float) -> None:
+        interval = self.config.bucket_retire_interval_s
+        if interval <= 0 or self._coalescer is None:
+            return
+        if self._retire_last_sweep is None:
+            self._retire_last_sweep = now
+            return
+        if now - self._retire_last_sweep >= interval:
+            self._retire_sweep(now)
+
+    def _retire_sweep(self, now: float) -> None:
+        """One retirement pass over the usage window: active buckets with
+        fewer than ``bucket_retire_min_dispatches`` dispatches since the
+        last sweep leave the active set (their rows pad up) and their graphs
+        are dropped once no batch of theirs is in flight. The largest bucket
+        is the pad-up backstop and stays."""
+        floor = max(1, self.config.bucket_retire_min_dispatches)
+        active = self._active_buckets()
+        largest = active[-1] if active else 0
+        retired = [b for b in active if b != largest and self._bucket_usage.get(b, 0) < floor]
+        for b in retired:
+            self._retired_buckets.add(b)
+            self._drop_pending.add(b)
+        if retired:
+            self._coalescer.retired_total += len(retired)
+            logger.info("batch coalescer retired underused bucket(s) %s (< %d dispatches "
+                        "in %.1fs); active warm set now %s", retired, floor,
+                        self.config.bucket_retire_interval_s, self._active_buckets())
+        self._bucket_usage.clear()
+        self._retired_hits.clear()
+        self._retire_last_sweep = now
+
+    def _drop_retired_graphs(self) -> None:
+        """Drop the graphs of retired buckets none of whose batches is still
+        in flight (a graph is never destroyed under a queued replay)."""
+        if not self._drop_pending:
+            return
+        busy = {slot.bucket for slot in self._inflight}
+        for bucket in sorted(self._drop_pending - busy):
+            self._drop_pending.discard(bucket)
+            if bucket in self._retired_buckets and self._warm is not None:
+                self._warm.drop(bucket)
+
+    def _bucket_state(self) -> Dict[str, Any]:
+        """The ledger's bucket-state provider (``GET /admin/xla``); host
+        state only."""
+        return {"coalescing": self.config.batch_deadline_ms > 0,
+                "warm": self._active_buckets(),
+                "retired": sorted(self._retired_buckets)}
+
+    def batching_stats(self) -> Dict[str, Any]:
+        """Scheduler counters: releases by reason, achieved occupancy, held
+        depth, release waits and the warm / retired sets, key for key the
+        JAX detector's."""
+        co = self._coalescer
+        occ_n, occ_sum = self._occ_stats
+        return {
+            "enabled": self.config.batch_deadline_ms > 0,
+            "held_rows": 0 if co is None else len(co),
+            "rows_coalesced": 0 if co is None else co.rows_in,
+            "releases": dict(co.releases) if co is not None else {},
+            "max_wait_s": 0.0 if co is None else round(co.max_wait_s, 6),
+            "mean_wait_s": (round(co.wait_sum_s / co.wait_n, 6)
+                            if co is not None and co.wait_n else 0.0),
+            "buckets_retired_total": 0 if co is None else co.retired_total,
+            "held_by_tenant": {} if co is None else co.held_by_tenant(),
+            "dispatches": occ_n,
+            "occupancy_sum": round(occ_sum, 4),
+            "occupancy_mean": round(occ_sum / occ_n, 4) if occ_n else None,
+            "warm_buckets": self._active_buckets(),
+            "retired_buckets": sorted(self._retired_buckets),
+        }
+
+    def _observe_coalesce_depth(self, depth: int) -> None:
+        if self.metrics is None:
+            return
+        if self._coalesce_gauge is None:
+            self._coalesce_gauge = self.metrics.COALESCE_DEPTH().labels(**self._obs_labels())
+        self._coalesce_gauge.set(depth)
+
+    def _count_release(self, reason: str) -> None:
+        if self.metrics is None:
+            return
+        child = self._release_children.get(reason)
+        if child is None:
+            child = self.metrics.DEADLINE_RELEASES().labels(reason=reason,
+                                                            **self._obs_labels())
+            self._release_children[reason] = child
+        child.inc()
+
+    # -- upload workers ---------------------------------------------------
+    def _ensure_upload_workers(self) -> None:
+        if self._upload_threads and all(t.is_alive() for t in self._upload_threads):
+            return
+        if self._upload_queue is None:
+            self._upload_queue = queue.Queue()
+        if self._dispatch_hb is None and self.health_monitor is not None:
+            self._dispatch_hb = self.health_monitor.register_heartbeat("scorer_dispatch")
+        self._upload_threads = [t for t in self._upload_threads if t.is_alive()]
+        for i in range(len(self._upload_threads), self.config.upload_workers):
+            thread = threading.Thread(target=self._upload_loop, daemon=True,
+                                      name=f"ScorerDispatch-{i}")
+            self._upload_threads.append(thread)
+            thread.start()
+
+    def _upload_loop(self) -> None:
+        """Dispatch worker: the upload, the replay and the readback's start
+        for queued slots. A failure is stored on the slot (counted at
+        drain), so no slot is left waiting on a worker that died."""
+        while True:
+            item = self._upload_queue.get()
+            if item is None:
+                return
+            if self._dispatch_hb is not None:
+                self._dispatch_hb.beat()
+            slot, chunk = item
+            slot.t_start = time.monotonic()  # the queue wait ends here
+            try:
+                with self._ledger.context(bucket=slot.bucket, backend=self._obs_backend,
+                                          where="dispatch", expected=False):
+                    self._readback(slot, self._score_dev(chunk))
+            except Exception as exc:  # noqa: BLE001 — the slot carries it to the drain
+                slot.error = exc
+            finally:
+                slot.done.set()
+
+    def _stop_upload_workers(self) -> None:
+        if self._upload_queue is None:
+            return
+        for thread in self._upload_threads:
+            if thread.is_alive():
+                self._upload_queue.put(None)   # one sentinel per live worker
+        for thread in self._upload_threads:
+            thread.join(timeout=5)
+        self._upload_threads = []
+
+    # -- drain ---------------------------------------------------------------
     def _drain_one(self) -> List[Optional[bytes]]:
         slot = self._inflight.popleft()
+        slot.done.wait()
+        self._drained_total += 1
+        if slot.error is not None:
+            # a worker's dispatch failed: every row of the batch is counted
+            # as a processing error, nothing is emitted, the loop lives on
+            self.count_processing_errors(slot.real, f"batch dispatch failed: {slot.error}")
+            return []
         if slot.event is not None:
             slot.event.synchronize()
             scores = slot.scores.numpy()[:slot.real]
         else:
             scores = np.asarray(slot.scores)[:slot.real]
-        self._drained_total += 1
         if slot.path != "host":
             # scoring-call start to host-readable scores (the host path
             # recorded its synchronous time at dispatch)
-            self._observe_batch(slot, time.monotonic() - slot.t_start)
+            start = slot.t_start if slot.t_start is not None else slot.t_enqueue
+            self._observe_batch(slot, time.monotonic() - start)
         threshold = self._threshold if self._threshold is not None else float("inf")
         hits = np.flatnonzero(scores > threshold)
         out: List[Optional[bytes]] = []
@@ -894,14 +1542,28 @@ class TorchScorerDetector(CoreDetector):
         return out
 
     def pending_count(self) -> int:
-        """Scored batches in flight, not yet drained: while > 0 the engine
-        short-polls and calls ``drain_ready`` on each tick."""
-        return len(self._inflight)
+        """Scored batches in flight, plus one while the coalescer holds rows:
+        while > 0 the engine short-polls and calls ``drain_ready`` on each
+        tick."""
+        held = self._coalescer is not None and len(self._coalescer) > 0
+        return len(self._inflight) + (1 if held else 0)
+
+    @property
+    def drain_poll_ms(self) -> Optional[int]:
+        """The engine's short-poll tick while the coalescer may hold rows: a
+        quarter of the deadline (the coalescer also releases a tick early),
+        at least 1 ms; None without a deadline."""
+        if self.config.batch_deadline_ms <= 0:
+            return None
+        return max(1, int(self.config.batch_deadline_ms / 4))
 
     def drained_total(self) -> int:
         """Batches drained so far: the progress counter the health watchdog
         pairs with ``pending_count`` to see a stuck device queue."""
         return self._drained_total
+
+    def _obs_labels(self) -> Dict[str, str]:
+        return dict(component_type=self.config.method_type, component_id=self.name)
 
     def _count_device_lines(self, n: int) -> None:
         """``n`` lines handed to the scorer in one call, under the
@@ -909,8 +1571,7 @@ class TorchScorerDetector(CoreDetector):
         if self.metrics is None:
             return
         if self._device_children is None:
-            labels = dict(component_type=self.config.method_type, component_id=self.name,
-                          device=str(self._device))
+            labels = dict(self._obs_labels(), device=str(self._device))
             self._device_children = (self.metrics.DEVICE_LINES().labels(**labels),
                                      self.metrics.DEVICE_BATCHES().labels(**labels))
         lines, batches = self._device_children
@@ -918,31 +1579,38 @@ class TorchScorerDetector(CoreDetector):
         batches.inc()
 
     def _observe_batch(self, slot: _InflightSlot, device_s: float) -> None:
-        """Per-batch telemetry when its scores become host-readable:
-        occupancy (real rows over the padded bucket), the queue wait (0: the
-        port dispatches inline), the device seconds, and the bucket."""
+        """Per-batch telemetry when its scores become host-readable: the
+        occupancy (real rows over the padded bucket), the queue wait
+        (dispatch call, or the oldest held row's arrival, to scoring start),
+        the device seconds and the bucket; a span in the capture ledger."""
+        start = slot.t_start if slot.t_start is not None else slot.t_enqueue
+        queue_wait_s = max(0.0, start - slot.t_enqueue)
+        occ_n, occ_sum = self._occ_stats
+        self._occ_stats = (occ_n + 1, occ_sum + slot.real / slot.bucket)
+        self._ledger.record_span(slot.bucket, slot.real, slot.path, queue_wait_s,
+                                 max(0.0, device_s), release=slot.release)
         if self.metrics is None:
             return
         children = self._batch_children.get(slot.path)
         if children is None:
-            labels = dict(component_type=self.config.method_type, component_id=self.name,
-                          path=slot.path)
+            labels = dict(self._obs_labels(), path=slot.path)
             children = (self.metrics.BATCH_OCCUPANCY().labels(**labels),
                         self.metrics.BATCH_QUEUE_WAIT().labels(**labels),
                         self.metrics.BATCH_DEVICE_SECONDS().labels(**labels))
             self._batch_children[slot.path] = children
         occupancy, queue_wait, device_seconds = children
         occupancy.observe(slot.real / slot.bucket)
-        queue_wait.observe(0.0)
+        queue_wait.observe(queue_wait_s)
         device_seconds.observe(max(0.0, device_s))
         self.metrics.BUCKET_SELECTED().labels(
-            bucket=str(slot.bucket), path=slot.path, component_type=self.config.method_type,
-            component_id=self.name).inc()
+            bucket=str(slot.bucket), path=slot.path, **self._obs_labels()).inc()
 
     def flush(self) -> List[Optional[bytes]]:
         """Idle-time drain: non-blocking on a running fit (a finished fit's
-        backlog is dispatched), then every in-flight batch is drained."""
+        backlog is dispatched); held rows release (``flush``), then every
+        in-flight batch is drained."""
         self._finish_fit(wait=False)
+        self._coalesce_pump(force=True)
         out = super().flush()
         while self._inflight:
             out.extend(self._drain_one())
@@ -950,9 +1618,12 @@ class TorchScorerDetector(CoreDetector):
 
     def flush_final(self) -> List[Optional[bytes]]:
         """Stop-time drain: waits for a running fit so its backlog is scored
-        and emitted before the caller stops."""
+        and emitted before the caller stops; the upload workers stop after
+        the drain (a detector used again respawns them)."""
         self._finish_fit(wait=True)
-        return self.flush()
+        out = self.flush()
+        self._stop_upload_workers()
+        return out
 
     def _make_alert_pb(self, msg: ParserSchema, score: float) -> bytes:
         """Alert for one anomalous message: ``make_output``'s skeleton plus
@@ -992,10 +1663,16 @@ class TorchScorerDetector(CoreDetector):
                     f"{getattr(new_config, field)!r}); restart the service")
 
     def apply_config(self) -> None:
-        """Re-derive the threshold: an explicit score_threshold wins; a new
-        threshold_sigma recomputes from the stored calibration stats."""
+        """Re-read the batching deadline and target, and re-derive the
+        threshold: an explicit score_threshold wins; a new threshold_sigma
+        recomputes from the stored calibration stats."""
         super().apply_config()
         self._validate_static_config()
+        # batching knobs apply live: held rows keep their arrival stamps; a
+        # deadline turned off drains on the next pump (reason "flush")
+        if self._coalescer is not None and self.config.batch_deadline_ms > 0:
+            self._coalescer.deadline_s = self.config.batch_deadline_ms / 1000.0
+            self._coalescer.target_occupancy = self.config.batch_target_occupancy
         if self.config.score_threshold is not None:
             self._threshold = float(self.config.score_threshold)
         elif self._calib_stats is not None:

@@ -198,6 +198,20 @@ class SequenceScorerBase(ScorerBase):
             self._cand_cache = ((vocab, n), np.sort(ids).astype(np.int32))
         return self._cand_cache[1]
 
+    def _candidate_ids_on(self, vocab: int, n: int, device: torch.device) -> torch.Tensor:
+        """The candidate ids as an int64 tensor on ``device``, kept from call
+        to call: a CUDA graph that captured it reads this storage, so new
+        ids (a restored subset) are copied into it, never swapped for a new
+        tensor, and no upload happens inside a capture."""
+        ids = self._candidate_ids(vocab, n)
+        cached = getattr(self, "_cand_dev", None)
+        if cached is None or cached[1].device != device or cached[1].shape[0] != len(ids):
+            self._cand_dev = (ids, torch.from_numpy(ids).to(device).long())
+        elif cached[0] is not ids:
+            cached[1].copy_(torch.from_numpy(ids))
+            self._cand_dev = (ids, cached[1])
+        return self._cand_dev[1]
+
     @classmethod
     def _pallas_lse(cls, hidden: torch.Tensor, emb_matrix: torch.Tensor) -> torch.Tensor:
         """[B, S] logsumexp of hidden·emb_matrixᵀ through the fused head."""
@@ -235,7 +249,7 @@ class SequenceScorerBase(ScorerBase):
             return self._token_nlls_exact(model, tokens)
         hidden = model.hidden(tokens).to(dtype)
         emb = emb.to(dtype)
-        ids = torch.from_numpy(self._candidate_ids(v, n_cand)).to(emb.device).long()
+        ids = self._candidate_ids_on(v, n_cand, emb.device)
         emb_c = emb[ids]                                     # [C, D]
         correction = math.log(float(v) / n_cand)
         tgt = self._target_logits(hidden, emb, tokens)

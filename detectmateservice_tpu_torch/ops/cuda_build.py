@@ -9,6 +9,11 @@ and an unchanged one is reused.
 
 Nothing here runs at import time: the first launch of a kernel builds it.
 A failed build raises; there is no fallback.
+
+Each build is recorded in the process's capture ledger
+(``engine/device_obs.py``) with its seconds, ``where="build"``, and the
+seconds spent loading a library that was already built count toward the
+ledger's ``cache_load`` warm-up phase.
 """
 from __future__ import annotations
 
@@ -82,6 +87,10 @@ def _finish(source: str, out: Path, proc, tmp: Path, t0: float) -> str:
         raise KernelBuildError(
             f"nvcc failed on {source} (rc {proc.returncode}):\n{stdout}\n{stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    from ..engine import device_obs
+
+    device_obs.get_ledger().record_compile(build_seconds[source], backend="cuda",
+                                           where="build", expected=True)
     return stdout + stderr
 
 
@@ -122,7 +131,12 @@ def load(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
-            build(source)
+            built = build(source) != ""
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(library_path(source)))
+            if not built:
+                from ..engine import device_obs
+
+                device_obs.get_ledger().record_cache_load(time.perf_counter() - t0)
             _loaded[source] = lib
         return lib

@@ -6,7 +6,7 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
   defaults and bounds: identity, logging, the engine (``engine_*``), the
   outputs (``out_*``), the admin HTTP server (``http_*``), ``config_file``,
   ``checkpoint_dir``, the watchdog (``watchdog_*``), ``event_ring_size``,
-  ``log_format``, ``send_batch_max``, ``transport_backend`` and
+  ``recompile_alert_enabled`` (the capture ledger's alerts), ``log_format``, ``send_batch_max``, ``transport_backend`` and
   ``dlq_max_attempts`` (the attempt budget of poison isolation);
 * ``DETECTMATE_``-prefixed environment overrides with ``__`` nesting, env
   winning over YAML per field; strings from the environment are converted
@@ -91,7 +91,6 @@ UNPORTED: Dict[str, tuple] = {
     "mesh_shape": (None, "the device mesh"),
     "profile_dir": (None, "profiling"),
     "profile_max_captures": (4, "profiling"),
-    "recompile_alert_enabled": (True, "the compile ledger"),
     "coordinator_address": (None, "the coordinator"),
     "num_processes": (1, "the coordinator"),
     "process_id": (0, "the coordinator"),
@@ -234,6 +233,10 @@ class ServiceSettings:
     watchdog_recovery_intervals: int = _field(2, ge=1)
     watchdog_ingest_stall_seconds: float = _field(0.0, ge=0.0)
     event_ring_size: int = _field(512, ge=8, le=65536)
+    # an unexpected recompile (a graph capture on the dispatch path after
+    # warm-up, engine/device_obs.py) emits a structured event and arms the
+    # xla_recompile_storm check; the counter moves either way
+    recompile_alert_enabled: bool = True
 
     def __post_init__(self) -> None:
         hints = typing.get_type_hints(type(self))

@@ -3,7 +3,9 @@
 The port's copy of the routes of ``detectmateservice_tpu/web/router.py``
 that this package's subsystems back: ``GET /metrics`` (the port's own
 registry), ``/admin/status``, ``/admin/health`` (``?deep=1`` evaluates the
-checks and answers 503 unless healthy), ``/admin/events``, and ``POST
+checks and answers 503 unless healthy), ``/admin/events``, ``/admin/xla``
+(the capture ledger's snapshot, ``?limit=``; host state only, no CUDA
+tensor is touched from the HTTP thread), and ``POST
 /admin/start``, ``/stop``, ``/shutdown``, ``/reconfigure``, ``/checkpoint``.
 The JAX package's other routes (``UNPORTED_ROUTES``) answer 404 until their
 subsystem is ported.
@@ -20,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from prometheus_client import CONTENT_TYPE_LATEST, generate_latest
 from prometheus_client.openmetrics import exposition as openmetrics
 
+from ..engine import device_obs
 from ..engine.metrics import REGISTRY
 
 
@@ -82,6 +85,12 @@ def _events(service, query, payload) -> Response:
     return Response(200, service.events.snapshot(limit if limit >= 0 else None))
 
 
+def _xla(service, query, payload) -> Response:
+    limit = _int_param(query, "limit", default=-1)
+    return Response(200, device_obs.get_ledger().snapshot(
+        limit if limit is not None and limit >= 0 else None))
+
+
 def _start(service, query, payload) -> Response:
     return Response(200, {"detail": service.start()})
 
@@ -111,6 +120,7 @@ ROUTES: Tuple[Route, ...] = (
     Route("GET", "/admin/status", _status, "status report"),
     Route("GET", "/admin/health", _health, "liveness / deep health"),
     Route("GET", "/admin/events", _events, "structured event ring"),
+    Route("GET", "/admin/xla", _xla, "capture ledger + device-batch spans"),
     Route("POST", "/admin/start", _start, "start the engine"),
     Route("POST", "/admin/stop", _stop, "stop the engine"),
     Route("POST", "/admin/shutdown", _shutdown, "shut the service down"),
@@ -120,7 +130,7 @@ ROUTES: Tuple[Route, ...] = (
 
 # the JAX package's routes whose subsystems are not ported: they answer 404
 UNPORTED_ROUTES: Tuple[Tuple[str, str], ...] = (
-    ("GET", "/admin/trace"), ("GET", "/admin/traces"), ("GET", "/admin/xla"),
+    ("GET", "/admin/trace"), ("GET", "/admin/traces"),
     ("GET", "/admin/profile"), ("GET", "/admin/load"), ("GET", "/admin/profile/latest"),
     ("GET", "/admin/replicas"), ("GET", "/admin/model"), ("GET", "/admin/replay"),
     ("GET", "/admin/faults"), ("GET", "/admin/dlq"), ("GET", "/admin/drift"),

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -385,3 +386,152 @@ def test_bench_torch_without_a_cuda_device_exits_2():
                           capture_output=True, text=True, timeout=120, check=False)
     assert proc.returncode == 2
     assert "metric" not in proc.stdout
+
+
+def _counting_stand_in(monkeypatch):
+    """A counting stand-in for the fused head (its plain version under it),
+    bound where the scorers and the script look it up."""
+    from collections import Counter
+
+    from detectmateservice_tpu_torch.models import base
+    from detectmateservice_tpu_torch.ops import scorehead
+
+    def stand_in(h, e):
+        stand_in.launches += 1
+        stand_in.variants[f"wgmma_tma_d{h.shape[1]}_split1"] += 1
+        return scorehead.candidate_lse_reference(h, e)
+
+    stand_in.launches, stand_in.variants = 0, Counter()
+    stand_in.__name__ = "candidate_lse"
+    monkeypatch.setattr(scorehead, "candidate_lse", stand_in)
+    monkeypatch.setattr(base, "candidate_lse", stand_in)
+    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", (stand_in, *chip_smoke.KERNEL_WRAPPERS[1:]))
+    return stand_in
+
+
+def test_coalesce_files_change_only_what_the_phase_names(tmp_path):
+    """The example's settings and config, with head_impl pallas, the
+    addresses under the temp directory, a free HTTP port and the port's
+    component type the only changes (on the card: no device)."""
+    import yaml
+
+    settings = yaml.safe_load(chip_smoke.coalesce_files(tmp_path).read_text())
+    config = yaml.safe_load((tmp_path / "scorer_config.yaml").read_text())
+    example = yaml.safe_load((REPO / "examples" / "scorer_settings.yaml").read_text())
+    example_cfg = yaml.safe_load((REPO / "examples" / "scorer_config.yaml").read_text())
+    moved = {k for k in set(settings) | set(example) if settings.get(k) != example.get(k)}
+    assert moved == {"component_type", "engine_addr", "out_addr", "http_port", "log_dir",
+                     "config_file"}
+    assert settings["component_type"] == chip_smoke.TORCH_SCORER
+    assert all(str(tmp_path) in str(settings[k])
+               for k in ("engine_addr", "out_addr", "log_dir", "config_file"))
+    block = config["detectors"]["TorchScorerDetector"]
+    ref = example_cfg["detectors"]["JaxScorerDetector"]
+    assert {k: v for k, v in block.items() if ref.get(k) != v} == {
+        "method_type": "torch_scorer", "head_impl": "pallas"}
+    assert set(ref) <= set(block)
+    # the example's own widths and batching
+    assert (block["dim"], block["seq_len"], block["max_batch"], block["score_norm"],
+            block["data_use_training"], block["batch_deadline_ms"]) == \
+        (128, 32, 1024, "position", 512, 8.0)
+    assert settings["engine_batch_size"] == 32 and settings["engine_batch_timeout_ms"] == 2.0
+
+
+def test_replays_add_the_launches_their_capture_recorded(monkeypatch):
+    """A replay runs no wrapper code: the counts move by what the capture
+    recorded, once per replay; the capture itself leaves them as they
+    were. Exercised with a stand-in graph on the CPU."""
+    import collections
+
+    from detectmateservice_tpu_torch.engine.device_obs import CompileLedger
+    from detectmateservice_tpu_torch.library.detectors import graphs
+
+    stand_in = _counting_stand_in(monkeypatch)
+
+    class Replayable:
+        def __init__(self):
+            self.replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    warm = graphs.WarmSet(torch.device("cpu"), CompileLedger(), "cuda",
+                          eager=lambda kind, t: torch.zeros(len(t)), ident=lambda kind: None)
+    # a capture that launched the head twice (a split launch counts once,
+    # two heads twice): recorded on the entry, and the counts restored
+    warm.cuda = True
+    graph = Replayable()
+    warm._entries[("score", 4)] = graphs._Entry(
+        graph, torch.zeros(4, 2, dtype=torch.int16), torch.arange(4.0), None,
+        [(2, collections.Counter({"wgmma_tma_d128_split1": 2})), (0, collections.Counter()),
+         (0, collections.Counter()), (0, collections.Counter())], 0.0)
+    out = warm.run("score", torch.ones(4, 2, dtype=torch.int16))
+    out2 = warm.run("score", torch.ones(4, 2, dtype=torch.int16))
+    assert graph.replays == 2 and out.tolist() == [0.0, 1.0, 2.0, 3.0]
+    assert out.data_ptr() != out2.data_ptr()      # a copy, not the static output
+    assert stand_in.launches == 4 and stand_in.variants["wgmma_tma_d128_split1"] == 4
+    assert warm.replay_launches["candidate_lse"] == 4
+    assert warm.replays[("score", 4)] == 2
+
+    class FakeDet:
+        _warm = warm
+
+    assert chip_smoke.replayed(FakeDet()) == {"candidate_lse": 4, "flash_forward": 0,
+                                              "flash_dq": 0, "flash_dkv": 0}
+    got = chip_smoke.replay_delta(FakeDet(), {"candidate_lse": 1})
+    assert chip_smoke.check_replays(got, {"candidate_lse": 3}, "test")["candidate_lse"] == 3
+    with pytest.raises(AssertionError, match="graph replays"):
+        chip_smoke.check_replays(chip_smoke.replay_delta(FakeDet(), {}),
+                                 {"candidate_lse": 3}, "test")
+
+
+def test_a_cpu_capture_leaves_the_launch_counts(monkeypatch):
+    from detectmateservice_tpu_torch.library.detectors import TorchScorerDetector
+
+    stand_in = _counting_stand_in(monkeypatch)
+    det = TorchScorerDetector(config=dict(
+        chip_smoke.SCORER_CONFIG, vocab_size=1024, dim=16, max_batch=64, device="cpu",
+        dtype="float32", head_impl="pallas"))
+    det.setup_io()
+    assert stand_in.launches == 0 and det._warm.captures == 2   # buckets 32 and 64
+    det._warm.capture("score", 4, det._zero_upload(4))
+    assert stand_in.launches == 0
+    det.score_tokens(np.zeros((4, 32), np.int32))   # scoring itself counts
+    assert stand_in.launches == 1
+
+
+def test_timeless_alerts_differ_only_in_the_wall_clock_stamps():
+    from detectmateservice_tpu_torch.schemas import DetectorSchema
+
+    doc = DetectorSchema(detectorID="d", alertID="7", detectionTimestamp=123,
+                         receivedTimestamp=456, extractedTimestamps=[789], score=2.5)
+    out = DetectorSchema.from_bytes(chip_smoke._timeless(doc.serialize()))
+    assert (out["detectionTimestamp"], out["receivedTimestamp"]) == (0, 0)
+    assert (out["alertID"], out["extractedTimestamps"], out["score"]) == ("7", [789], 2.5)
+
+
+def test_coalesce_phase_on_the_cpu(monkeypatch, capsys):
+    """Phase 13 at a narrowed width on the CPU with a counting stand-in for
+    the fused head: (a) the example hosted by the Service, fed by a sender
+    process, every check of the phase; (b) a bucket retires, pads up and
+    comes back through one expected capture; (c) upload workers give the
+    inline alerts."""
+    import json
+
+    _counting_stand_in(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "COALESCE_DETECT", 4096)
+    result = chip_smoke.phase_coalesce("cpu", device="cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [line["phase"] for line in lines] == ["coalesce", "coalesce_retire",
+                                                 "coalesce_workers"]
+    assert result["read_lines"] == result["lines_sent"]
+    assert result["alerts"] == result["unique_alerts"] and result["recall"] >= 0.9
+    # the wait bound is held on the card, where scoring leaves the loop
+    assert result["release_wait_bound_ms"] == 12.0 and result["max_release_wait_ms"] > 0
+    assert result["xla"]["totals"]["unexpected"] == 0 and result["unexpected_metric"] == 0
+    assert sum(result["releases_with_lone"].values()) == sum(result["releases_metric"].values())
+    assert result["deep_health"]["after"] == 200
+    assert 256 in result["retire"]["retired_buckets"] and result["retire"]["graph_dropped"]
+    assert [e["where"] for e in result["retire"]["resurrection_captures"]] == ["bucket_warm"]
+    assert result["workers"]["identical"] and result["workers"]["workers_after"] == []

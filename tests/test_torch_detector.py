@@ -585,8 +585,6 @@ class TestNotYetPorted:
     @pytest.mark.parametrize("field,value,slice_name", [
         ("attn_impl", "ring", "the multi-GPU slice"),
         ("mesh_shape", {"data": 1}, "multi-GPU"),
-        ("batch_deadline_ms", 5.0, "coalescer"),
-        ("upload_workers", 1, "upload-worker"),
     ])
     def test_raises_naming_the_later_slice(self, field, value, slice_name):
         # ring attention belongs to the logbert model
@@ -643,10 +641,10 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "detectmateservice_tpu"
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """In a fresh interpreter (tests/conftest.py has already imported jax in
-    this one): the port, its detector, its ops, its featurizer and framing,
-    its service host (settings, config, engine, sockets, metrics, health,
-    admin plane, CLI), chip_smoke.py and bench_torch.py load without any of
-    the forbidden modules."""
+    this one): the port, its detector and warm set, its ops, its featurizer
+    and framing, its service host (settings, config, engine, sockets,
+    metrics, health, the capture ledger, admin plane, CLI), chip_smoke.py and
+    bench_torch.py load without any of the forbidden modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import detectmateservice_tpu_torch\n"
@@ -669,6 +667,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.engine.socket\n"
         "import detectmateservice_tpu_torch.engine.metrics\n"
         "import detectmateservice_tpu_torch.engine.health\n"
+        "import detectmateservice_tpu_torch.engine.device_obs\n"
+        "import detectmateservice_tpu_torch.library.detectors.graphs\n"
         "import detectmateservice_tpu_torch.web.router\n"
         "import detectmateservice_tpu_torch.web.server\n"
         "import detectmateservice_tpu_torch.core\n"
@@ -689,6 +689,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "detectmateservice_tpu_torch.utils.matchkern" in loaded
     assert "detectmateservice_tpu_torch.core" in loaded
     assert "detectmateservice_tpu_torch.cli" in loaded
+    assert "detectmateservice_tpu_torch.engine.device_obs" in loaded
+    assert "detectmateservice_tpu_torch.library.detectors.graphs" in loaded
     assert "bench_torch" in loaded
 
 

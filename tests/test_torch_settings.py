@@ -29,6 +29,7 @@ YAML = {
     "watchdog_enabled": False, "watchdog_interval_s": 0.5, "watchdog_stall_seconds": 2,
     "watchdog_unhealthy_seconds": 4.0, "watchdog_recovery_intervals": 3,
     "watchdog_ingest_stall_seconds": 1.5, "event_ring_size": 64,
+    "recompile_alert_enabled": False,
     # unported subsystems at their defaults are accepted
     "engine_trace": False, "router_replicas": [], "shed_enabled": False,
 }
