@@ -99,7 +99,42 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    up, and persistent pressure brings it back with one expected capture;
    ``device_hbm_bytes`` before and after. (c) The (a) stream in process
    through ``process_batch`` with ``upload_workers: 1``: alerts identical
-   to inline dispatch (the wall-clock timestamps aside).
+   to inline dispatch (the wall-clock timestamps aside);
+14. the model lifecycle (phase ``lifecycle``): the scorer example with
+   ``rollout_enabled``, ``drift_enabled`` and ``capacity_enabled``, hosted by
+   the port's ``Service`` with a fresh capture ledger, every other
+   ``rollout_*``/``drift_*``/``capacity_*`` setting at its default but the
+   run-time cuts of ``LIFECYCLE_SETTINGS``, fed by a sender process. (e)
+   After the fit, 1 s idle: the probed capacity (``source: probe``). (a)
+   65,536 single messages; once the reservoir holds 1,024 rows, ``POST
+   /admin/model {"action": "cycle", "block": true}`` while they flow: its
+   verdict under the default gate, fine-tune steps and seconds, the shadow
+   mean delta and flip ratio; every line read, alerts once each, recall >=
+   0.9; 64 lone messages, then lone messages during a second cycle; the
+   largest release wait and the lone p50 inside and outside the cycles
+   (every manager verb's span is a cycle), the 12 ms bound held outside;
+   ``GET /admin/slo``'s modeled capacity beside the socket rate. (b) A
+   stored version promoted over HTTP, then a rollback (a version promoted
+   first when none was live): after each swap no capture at all, every
+   warm bucket's replay bit-equal to eager, the installed version's stored
+   weights scored as a candidate bit-equal to the live graph on 1,024
+   rows, the copy and CPU-mirror seconds; the swap series exported. (c) A
+   broken candidate (the embedding times 10) through ``inject_candidate``:
+   held back, its ``model_canary_holdback`` event and metric. (d) 65,536
+   messages of another template mix: ``drift_detected``, a drift-started
+   cycle in ``/admin/model?history=1``, ``model_drift_score`` over its
+   threshold in ``/admin/drift``; no failed capacity probe;
+
+The LogBERT check (in phase 8, before its detector is freed):
+``rollout_fine_tune`` on 256 sampled rows (8 steps through the flash
+forward, dQ and dK/dV), ``rollout_scores`` of live and candidate, then
+``install_candidate``: no capture, the 256 bucket's replay bit-equal to
+eager, the candidate's scores bit-equal to the live ones, exact launch
+counts. The int8w check (after phase 11, on phase 10's detector): one
+fine-tune and one install under ``dtype: int8w``: the gate judged again
+(rows, flips), every warm bucket re-captured as an expected capture, none
+unexpected, replays bit-equal to eager, the int8 state's bytes equal to
+``quant_stats``.
 
 Every device batch on a CUDA device is the replay of a CUDA graph of the
 detector's warm set (``library/detectors/graphs.py``). A capture's kernel
@@ -112,7 +147,10 @@ is held bit-equal to the eager call on the same batch and both are timed
 (``replay_vs_eager`` lines).
 
 Each detector run resets every kernel's launch count just before and reads
-them just after; the counts must be exactly what the path launches, and
+them just after (the lifecycle paths too: ``lifecycle``, ``int8w_lifecycle``
+and ``logbert_lifecycle``, where a candidate's shadow chunks run op by op
+and checks beside the path run ``uncounted``); the counts must be exactly
+what the path launches, and
 every bf16 flash and fused-head launch on every path must have taken its
 tensor-core (wgmma) variant. Then
 the kernel summary line, and last ``{"ok": true, "device": ...}``. Any
@@ -213,6 +251,25 @@ RETIRE_SMALL = 200
 RETIRE_LARGE = 1024
 # off the card (a CPU rehearsal) the example is narrowed to these values
 COALESCE_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
+
+# the lifecycle phase: the scorer example with rollout, drift and capacity
+# on, every other rollout_*/drift_*/capacity_* setting at its default but
+# these cuts for run time: cycles are sent over HTTP (no interval cycle),
+# drift and capacity tick every 0.5 s, drift starts a cycle at once, and
+# the idle probe runs after 1 s
+LIFECYCLE_SETTINGS = {"rollout_enabled": True, "drift_enabled": True, "capacity_enabled": True,
+                      "rollout_interval_s": 3600.0, "drift_interval_s": 0.5,
+                      "drift_min_cycle_interval_s": 0.0, "capacity_interval_s": 0.5,
+                      "capacity_probe_idle_s": 1.0}
+LIFECYCLE_DETECT = 65536
+LIFECYCLE_LONE = 64
+# (a)'s cycle is sent once the reservoir holds this many rows (about 20,000
+# messages into the stream at the default ratio of 0.05)
+LIFECYCLE_CYCLE_AT = 1024
+# (d)'s shifted stream: as many messages as the stream the baseline came from
+LIFECYCLE_SHIFTED = 65536
+# the LogBERT check: 256 sampled rows, 8 train steps of 32
+LOGBERT_LIFECYCLE_ROWS = 256
 
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
@@ -1127,6 +1184,8 @@ def phase_logbert_detector() -> dict:
         replay_vs_eager=replay_vs_eager(det, "logbert", "fitted", [LOGBERT_CALL],
                                         detect_msgs))
     emit("logbert_detector", **result)
+    # the LogBERT check of the lifecycle, before the detector is freed
+    result["lifecycle"] = logbert_lifecycle(det, detect_msgs)
     return result
 
 
@@ -1401,20 +1460,20 @@ def phase_checkpoints(detectors: dict) -> dict:
 
 
 # -- phase 12 ----------------------------------------------------------------
-def _http(method: str, port: int, path: str, timeout: float = 30.0):
+def _http(method: str, port: int, path: str, timeout: float = 30.0, payload=None):
+    body = json.dumps(payload or {}).encode() if method == "POST" else None
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
-                                 data=b"{}" if method == "POST" else None,
-                                 headers={"Content-Type": "application/json"})
+                                 data=body, headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         body = resp.read().decode()
         return resp.status, (json.loads(body) if "json" in resp.headers["Content-Type"]
                              else body)
 
 
-def _http_any(method: str, port: int, path: str, timeout: float = 30.0):
+def _http_any(method: str, port: int, path: str, timeout: float = 30.0, payload=None):
     """``_http``, with an error status returned instead of raised."""
     try:
-        return _http(method, port, path, timeout)
+        return _http(method, port, path, timeout, payload)
     except urllib.error.HTTPError as exc:
         return exc.code, json.loads(exc.read().decode())
 
@@ -1475,6 +1534,15 @@ def service_files(tmp: Path, name: str, config: dict, **settings) -> Path:
     path = tmp / f"{name}_settings.yaml"
     path.write_text(yaml.safe_dump(doc))
     return path
+
+
+def _outputs_connected(engine) -> bool:
+    """Whether every output socket of ``engine`` has a connected peer: with
+    ``IMMEDIATE`` set, a socket is writable only then."""
+    import zmq
+
+    return all(sock._sock.getsockopt(zmq.EVENTS) & zmq.POLLOUT
+               for sock in engine._out_socks)
 
 
 def _lone_latencies(sender, sink, msgs) -> list:
@@ -1566,12 +1634,19 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
         flips = sorted(want ^ set(by_id), key=int)
         near = [float(abs(scores[int(i)] - threshold)) for i in flips]
 
-        # the admin plane
+        # the admin plane. Liveness: a check latched UNHEALTHY while the
+        # warm set was captured recovers after the watchdog's recovery
+        # intervals (2 of 2 s), which a short stream may not have lasted
+        _wait(lambda: _http_any("GET", port, "/admin/health")[0] == 200, 30,
+              "liveness after warm-up", interval=0.2)
         health_code = _http("GET", port, "/admin/health")[0]
         _http("POST", port, "/admin/stop")
         stopped = not service.engine.running
         _http("POST", port, "/admin/start")
         _wait(lambda: service.engine.running, 10, "the engine to start again")
+        # the restarted engine dials its output in the background, and an
+        # alert sent before the dial completes is dropped (drop mode)
+        _wait(lambda: _outputs_connected(service.engine), 10, "the output to reconnect")
         restarted = _lone_latencies(sender, sink, lone[SERVICE_LONE:])[0]
         t0 = time.perf_counter()
         _http("POST", port, "/admin/shutdown")
@@ -1696,14 +1771,16 @@ def phase_service_cli(tmp: Path, config: dict, fit_msgs, detect_msgs) -> dict:
 
 
 # -- phase 13 ----------------------------------------------------------------
-def coalesce_files(tmp: Path, device: str = "cuda", **config_changes) -> Path:
+def coalesce_files(tmp: Path, device: str = "cuda", settings_changes=None,
+                   **config_changes) -> Path:
     """``examples/scorer_settings.yaml`` and ``examples/scorer_config.yaml``
     written under ``tmp`` with only these changes: ``head_impl: pallas``;
     the addresses (sockets, logs, the config file) under ``tmp``; a free
     HTTP port; the port's component type (the settings' ``component_type``
     and the config block's name and ``method_type``); and, off the card,
     ``device`` and ``COALESCE_CPU_CHANGES`` (plus ``config_changes``, for (b)
-    and (c)). Returns the settings file."""
+    and (c), and ``settings_changes``, for the lifecycle phase). Returns the
+    settings file."""
     import yaml
 
     examples = Path(__file__).resolve().parent / "examples"
@@ -1717,7 +1794,8 @@ def coalesce_files(tmp: Path, device: str = "cuda", **config_changes) -> Path:
         {"detectors": {"TorchScorerDetector": block}}))
     settings.update(component_type=TORCH_SCORER, engine_addr=f"ipc://{tmp}/detector.ipc",
                     out_addr=[f"ipc://{tmp}/output.ipc"], http_port=_free_port(),
-                    log_dir=str(tmp / "logs"), config_file=str(tmp / "scorer_config.yaml"))
+                    log_dir=str(tmp / "logs"), config_file=str(tmp / "scorer_config.yaml"),
+                    **(settings_changes or {}))
     path = tmp / "scorer_settings.yaml"
     path.write_text(yaml.safe_dump(settings))
     return path
@@ -1991,17 +2069,21 @@ def _coalesce_counters(text: str, det, cid: str) -> tuple:
     return releases, unexpected
 
 
-def _coalesce_settle(det, engine, collector) -> None:
+def _settle(det, engine, collector) -> None:
     """Wait until the engine read no frame, and no alert came, for a second
-    and nothing is held or in flight; then stop the collector. Only Python
-    attributes are read while the stream runs: an HTTP scrape would hold
-    the interpreter lock the engine loop needs, and the release waits
-    would measure the scrape."""
+    and nothing is held or in flight. Only Python attributes are read while
+    the stream runs: an HTTP scrape would hold the interpreter lock the
+    engine loop needs, and the release waits would measure the scrape."""
     def settled():
         return (det.pending_count() == 0 and engine._hb_ingest.age() > 1.0
                 and (not collector.times or time.perf_counter() - collector.times[-1] > 1.0))
 
     _wait(settled, 300, "the stream to go quiet", interval=0.1)
+
+
+def _coalesce_settle(det, engine, collector) -> None:
+    """``_settle``, then stop the collector."""
+    _settle(det, engine, collector)
     collector.stop_flag.set()
     collector.join(5)
 
@@ -2158,6 +2240,699 @@ def coalesce_workers(tmp: Path, checkpoint: Path, device: str) -> dict:
     return result
 
 
+# -- phase 14: the model lifecycle -------------------------------------------
+def make_shifted_messages(n: int, seed: int = 5) -> list:
+    """(d)'s shifted stream: the audit lines of ``make_messages`` (no
+    anomalies) mixed half and half with a template the fit never saw."""
+    rng = np.random.default_rng(seed)
+    audit, _ = make_messages(n, anomaly_rate=0.0, seed=seed)
+    msgs = []
+    for i in range(n):
+        if rng.random() < 0.5:
+            msgs.append(audit[i])
+            continue
+        msgs.append(ParserSchema(
+            EventID=2, template="sshd[<*>]: Accepted publickey for <*> from <*> port <*>",
+            variables=[str(int(rng.integers(1000, 1100))), ["deploy", "backup"][i % 2],
+                       f"10.1.0.{i % 8}", "22"],
+            logID=f"s{i}", logFormatVariables={"Time": str(1_700_100_000 + i)}).serialize())
+    return msgs
+
+
+def serve_sender(addr: str, n_fit: int, n_detect: int, n_shifted: int) -> None:
+    """The upstream stage of the lifecycle phase, in a process of its own:
+    for each command line of standard input (``fit``, ``detect``,
+    ``shifted``) it sends that stream's single messages to ``addr`` and
+    prints a JSON line with when the stream began and ended
+    (``time.perf_counter``); ``close`` closes the socket."""
+    streams = {"fit": make_messages(n_fit, anomaly_rate=0.0)[0],
+               "detect": make_messages(n_detect, anomaly_rate=0.01, seed=1)[0],
+               "shifted": make_shifted_messages(n_shifted)}
+    sender = ZmqPairSocketFactory().create_output(addr, buffer_size=1000)
+    print("ready", flush=True)
+    for line in sys.stdin:
+        command = line.strip()
+        if command == "close":
+            break
+        t0 = time.perf_counter()
+        for msg in streams[command]:
+            sender.send(msg)
+        print(json.dumps({"t_first": t0, "t_sent": time.perf_counter()}), flush=True)
+    sender.close()
+
+
+class uncounted:
+    """Launches made inside (checks beside a path: replays against eager
+    calls, candidate against live) leave every wrapper's count, and the
+    detector's replayed launches, as they were."""
+
+    def __init__(self, det):
+        self.det = det
+
+    def __enter__(self):
+        self.saved = [(fn.launches, Counter(fn.variants)) for fn in KERNEL_WRAPPERS]
+        self.replays = dict(self.det._warm.replay_launches)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, (launches, variants) in zip(KERNEL_WRAPPERS, self.saved):
+            fn.launches = launches
+            fn.variants.clear()
+            fn.variants.update(variants)
+        self.det._warm.replay_launches.clear()
+        self.det._warm.replay_launches.update(self.replays)
+        return False
+
+
+def candidate_vs_live(det, params, msgs, rows: int = 1024) -> dict:
+    """``rollout_scores`` of ``rows`` messages through a candidate's state
+    dict (op by op) and through the live weights (the warm set's graph):
+    after an install of that candidate they must be bit-equal."""
+    tokens, ok = det._featurize_raw_batch(msgs[:rows])
+    if not ok.all():
+        raise AssertionError("a message of the candidate check did not featurize")
+    with uncounted(det):
+        live = det.rollout_scores(None, tokens)
+        cand = det.rollout_scores(params, tokens)
+    return {"rows": int(len(tokens)), "bit_equal": bool(np.array_equal(live, cand)),
+            "max_abs_diff": float(np.abs(live - cand).max())}
+
+
+def _swap_captures(ledger, since: int) -> list:
+    """The ledger's capture events after the first ``since``."""
+    snap = ledger.snapshot()
+    n = snap["totals"]["compiles"] - since
+    return snap["compiles"][-n:] if n > 0 else []
+
+
+def _timed(obj, name: str, log: list):
+    """Wrap ``obj``'s method ``name`` to log each call's span on the host's
+    monotonic clock."""
+    original = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            t1 = time.monotonic()
+            log.append({"seam": name, "t0": t0, "t1": t1, "seconds": t1 - t0})
+
+    setattr(obj, name, timed)
+
+
+class _CycleThread(threading.Thread):
+    """``POST /admin/model {"action": "cycle", "block": true}`` on a thread
+    of its own, stamped with the host's monotonic clock."""
+
+    def __init__(self, port: int):
+        super().__init__(name="CycleRequest", daemon=True)
+        self.port, self.result, self.error = port, None, None
+        self.t0 = self.t1 = None
+
+    def run(self) -> None:
+        self.t0 = time.monotonic()
+        try:
+            self.result = _http("POST", self.port, "/admin/model", timeout=300,
+                                payload={"action": "cycle", "block": True})[1]
+        except Exception as exc:  # noqa: BLE001 — the caller raises it
+            self.error = exc
+        self.t1 = time.monotonic()
+
+
+def _cycle(port: int, mgr, tries: int = 60) -> _CycleThread:
+    """One blocking operator cycle; while another candidate (a drift
+    cycle's) shadows, the cycle is skipped: wait for its verdict and send
+    again."""
+    for _ in range(tries):
+        cycle = _CycleThread(port)
+        cycle.start()
+        cycle.join(300)
+        if cycle.error is not None:
+            raise AssertionError(f"the cycle request failed: {cycle.error}")
+        if "skipped" not in cycle.result or "shadowing" not in cycle.result["skipped"]:
+            return cycle
+        _wait(lambda: mgr.status()["shadow"] is None, 60, "the shadowing candidate's verdict")
+    raise AssertionError(f"the cycle was skipped {tries} times")
+
+
+def _lone_during(port: int, sender, sink, mgr) -> tuple:
+    """Lone anomalous messages, one at a time, while a blocking cycle runs:
+    ``(cycle, [(send time, seconds, lines)...])``."""
+    sink.recv_timeout = 10000
+    cycle = _CycleThread(port)
+    cycle.start()
+    out, i = [], 0
+    while cycle.is_alive() and i < 256:
+        msg = _lone_anomalies(1, f"cyc{i}")[0]
+        t0 = time.monotonic()
+        sender.send(msg)
+        alert = DetectorSchema.from_bytes(sink.recv())
+        out.append((t0, time.monotonic() - t0, count_lines(msg)))
+        if alert["logIDs"] != [f"cyc{i}-0"]:
+            raise AssertionError(f"lone message cyc{i}-0 got the alert {alert['logIDs']}")
+        i += 1
+    cycle.join(300)
+    if cycle.error is not None:
+        raise AssertionError(f"the cycle request failed: {cycle.error}")
+    return cycle, out
+
+
+def phase_lifecycle(smi: str, device: str = "cuda") -> dict:
+    """The scorer example with the model lifecycle on, hosted by the port's
+    Service: (a) a cycle under load, (b) promote and rollback, (c) a broken
+    candidate, (d) drift, (e) capacity."""
+    tmp = Path(tempfile.mkdtemp(prefix="dmlc", dir="/tmp"))
+    previous = device_obs.get_ledger()
+    # a ledger of this phase's own, with room for every span of its streams
+    device_obs.activate(device_obs.CompileLedger(max_spans=8192))
+    try:
+        return lifecycle_service(tmp, smi, device)
+    finally:
+        device_obs.activate(previous)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lifecycle_service(tmp: Path, smi: str, device: str) -> dict:
+    ledger = device_obs.get_ledger()
+    settings = ServiceSettings.from_yaml(str(coalesce_files(
+        tmp, device, settings_changes=dict(LIFECYCLE_SETTINGS,
+                                           rollout_dir=str(tmp / "store")))))
+    cid = settings.component_id
+    fit_msgs, _ = make_messages(512, anomaly_rate=0.0)
+    detect_msgs, anomalies = make_messages(LIFECYCLE_DETECT, anomaly_rate=0.01, seed=1)
+    shifted_msgs = make_shifted_messages(LIFECYCLE_SHIFTED)
+    lone = _lone_anomalies(LIFECYCLE_LONE, "lone")
+    factory = ZmqPairSocketFactory()
+    sink = factory.create(settings.out_addr[0])
+    service = Service(settings)
+    t0 = time.perf_counter()
+    service.setup_io()
+    setup_s = time.perf_counter() - t0
+    det, mgr = service.library_component, service.rollout
+    drift, capacity = service.drift, service.capacity
+    if mgr is None or drift is None or capacity is None:
+        raise AssertionError("the Service built no rollout manager, drift or capacity monitor")
+    # every coalesced release's wait (the oldest held row's age), by the
+    # host's monotonic clock; each seam's seconds
+    waits, seams = [], []
+    release = det._release_coalesced
+
+    def recording(n, reason, now):
+        waits.append((now, reason, det._coalescer.oldest_age(now)))
+        return release(n, reason, now)
+
+    det._release_coalesced = recording
+    for name in ("rollout_fine_tune", "install_candidate"):
+        _timed(det, name, seams)
+    # every manager verb's span (operator, drift-started and thread-ticked
+    # alike: a cycle is any of them), and the monitors' ticks
+    verbs, ticks = [], []
+    for name in ("run_cycle", "shadow_tick", "promote", "rollback", "inject_candidate"):
+        _timed(mgr, name, verbs)
+    _timed(drift, "tick", ticks)
+    _timed(capacity, "tick", ticks)
+    runner = threading.Thread(target=service.run, name="ServiceRun", daemon=True)
+    runner.start()
+    _wait(lambda: service.engine.running and service.web_server.port, 30, "the service")
+    port = service.web_server.port
+    collector = _Collector(sink)
+    collector.start()
+    upstream = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.serve_sender("
+         f"{settings.engine_addr!r}, {len(fit_msgs)}, {LIFECYCLE_DETECT}, "
+         f"{LIFECYCLE_SHIFTED})"],
+        cwd=Path(__file__).resolve().parent, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+
+    def command(name: str) -> dict:
+        upstream.stdin.write(name + "\n")
+        upstream.stdin.flush()
+        return json.loads(upstream.stdout.readline())
+
+    try:
+        if upstream.stdout.readline().strip() != "ready":
+            raise AssertionError("the sender process did not start")
+
+        # the main path: launch counts 0 just before, read just after (d)
+        reset_launches()
+        replays0 = replayed(det)
+        t0 = time.perf_counter()
+        command("fit")
+        _wait(lambda: det._fitted and det._fit_thread is None and det.pending_count() == 0,
+              300, "the fit at the boundary")
+        fit_s = time.perf_counter() - t0
+
+        # (e), first half: no batch yet, so after 1 s idle the capacity
+        # model is the probe's
+        _wait(lambda: capacity.status()["capacity_source"] == "probe", 60,
+              "the idle capacity probe")
+        slo_probe = _http("GET", port, "/admin/slo")[1]
+
+        # (a) a cycle under load: sent once the reservoir holds
+        # LIFECYCLE_CYCLE_AT rows, while the stream flows
+        sent_mono = time.monotonic()
+        upstream.stdin.write("detect\n")
+        upstream.stdin.flush()
+        _wait(lambda: len(mgr.sampler) >= LIFECYCLE_CYCLE_AT, 120, "sampled rows", 0.005)
+        cycle_a = _cycle(port, mgr)
+        sent = json.loads(upstream.stdout.readline())
+        _settle(det, service.engine, collector)
+        t_last = collector.times[-1] if collector.times else float("nan")
+        detect_alerts = list(collector.frames)
+        collector.stop_flag.set()
+        collector.join(5)
+        slo_traffic = _http("GET", port, "/admin/slo")[1]
+        sampler_after = mgr.sampler.stats()
+
+        sender = factory.create_output(settings.engine_addr, buffer_size=1000)
+        latencies = _lone_latencies(sender, sink, lone)
+        cycle_b, lone_during = _lone_during(port, sender, sink, mgr)
+        t_end_a = time.monotonic()
+
+        # (b) promote a stored version, then roll back; every swap checked
+        swaps = []
+        compiles0 = ledger.snapshot()["totals"]["compiles"]
+        history = _http("GET", port, "/admin/model?history=1")[1]
+        stored = sorted(e["version"] for e in history["checkpoints"])
+        live = _http("GET", port, "/admin/model")[1]["live_version"]
+        actions = []
+        if live is None:
+            actions.append(("promote", stored[0]))
+            live = stored[0]
+        actions += [("promote", max(v for v in stored if v != live)), ("rollback", None)]
+        for action, version in actions:
+            outcome = _http("POST", port, "/admin/model", timeout=120,
+                            payload={"action": action, "version": version})[1]
+            swaps.append(lifecycle_swap_check(det, mgr, ledger, compiles0, action, outcome,
+                                              detect_msgs, port))
+        text = _http("GET", port, "/metrics")[1]
+        swap_series = {name: metric_samples(text, name, cid) for name in (
+            "model_swaps_total", "model_version_info", "model_shadow_divergence_count")}
+
+        # (c) a broken candidate: the live weights with the embedding scaled
+        state = det._model.state_dict()
+        broken = {k: (v * 10.0 if k == "tok_embed.weight" else v.clone())
+                  for k, v in state.items()}
+        broken_version = None
+        for _ in range(600):
+            try:
+                broken_version = mgr.inject_candidate(broken, det._optimizer.state_dict(),
+                                                      tag="broken")
+                break
+            except Exception as exc:  # noqa: BLE001 — a drift candidate shadows: wait
+                if "already shadowing" not in str(exc):
+                    raise
+                time.sleep(0.1)
+        broken_outcome = None
+        for _ in range(200):
+            broken_outcome = mgr.shadow_tick()
+            if broken_outcome is not None or mgr.status()["shadow"] is None:
+                break
+            time.sleep(0.05)
+        broken_entry = mgr.store.entry(broken_version)
+        events = _http("GET", port, "/admin/events")[1]
+        holdback_events = [e for e in events.get("events", [])
+                           if e.get("kind") == "model_canary_holdback"
+                           and e.get("version") == broken_version]
+        holdbacks = sum(v for k, v in metric_samples(
+            _http("GET", port, "/metrics")[1], "model_swaps_total", cid).items()
+            if 'result="holdback"' in k)
+
+        # (d) drift: a shifted stream of the baseline's stream's size
+        collector = _Collector(sink)
+        collector.start()
+        ticks0 = drift.status()["ticks"]
+        upstream.stdin.write("shifted\n")
+        upstream.stdin.flush()
+        drifting = {}
+
+        def detected():
+            doc = _http("GET", port, "/admin/drift")[1]
+            if doc["drifting"]:
+                drifting.update(doc)
+            return bool(drifting)
+
+        _wait(detected, 120, "drift_detected", interval=0.25)
+        shifted_sent = json.loads(upstream.stdout.readline())
+
+        def drift_cycle():
+            doc = _http("GET", port, "/admin/model?history=1")[1]
+            return [e for e in doc["checkpoints"] if e["meta"].get("reason") == "drift"]
+
+        _wait(lambda: bool(drift_cycle()), 120, "a drift-started cycle", interval=0.25)
+        drift_entries = drift_cycle()
+        _settle(det, service.engine, collector)
+        shifted_alerts = list(collector.frames)
+        counts = read_launches()
+        variants = read_variants()["candidate_lse"]
+        graph = replay_delta(det, replays0)
+        collector.stop_flag.set()
+        collector.join(5)
+        drift_events = [e["kind"] for e in _http("GET", port, "/admin/events")[1]["events"]
+                        if e.get("kind", "").startswith("drift_")]
+        upstream.stdin.write("close\n")
+        upstream.stdin.flush()
+        upstream.wait(30)
+    finally:
+        if upstream.poll() is None:
+            upstream.kill()
+            upstream.wait(10)
+
+    lines_sent = sum(map(count_lines, fit_msgs + detect_msgs + lone + shifted_msgs)) \
+        + sum(lines for _, _, lines in lone_during)
+    text = _http("GET", port, "/metrics")[1]
+    read_lines = metric_value(text, "data_read_lines_total", cid)
+    xla = _http("GET", port, "/admin/xla")[1]
+    events = _http("GET", port, "/admin/events")[1]["events"]
+    probe_failures = [e for e in events if "capacity probe failed" in e.get("message", "")]
+    status = _http("GET", port, "/admin/model")[1]
+    _http("POST", port, "/admin/shutdown")
+    runner.join(60)
+    sender.close()
+    sink.close()
+
+    ids = [DetectorSchema.from_bytes(a)["logIDs"][0] for a in _messages_of(detect_alerts)]
+    by_id = set(ids)
+    shifted_ids = [DetectorSchema.from_bytes(a)["logIDs"][0]
+                   for a in _messages_of(shifted_alerts)]
+    recall = len(anomalies & by_id) / max(1, len(anomalies))
+    # release waits inside and outside the cycles: a wait is inside when
+    # its span (the oldest row's arrival to the release) meets a manager
+    # verb's span
+    windows = [(v["t0"], v["t1"]) for v in verbs]
+
+    def meets(w, spans):
+        return any(a <= w[0] and w[0] - w[2] <= b for a, b in spans)
+
+    # (a)'s stream and lone messages, the coalesce phase's traffic, are held
+    # to the bound outside the cycles; (d)'s stream, half of it alerts, is
+    # reported apart
+    stream_a = [w for w in waits if w[0] <= t_end_a]
+    inside = [w for w in stream_a if meets(w, windows)]
+    outside = [w for w in stream_a if not meets(w, windows)]
+    shifted_waits = [w for w in waits if w[0] > t_end_a]
+    tick_spans = [(t["t0"], t["t1"]) for t in ticks]
+    slowest_outside = [{"reason": w[1], "wait_ms": w[2] * 1e3,
+                        "after_stream_start_s": w[0] - sent_mono,
+                        "monitor_tick_overlaps": meets(w, tick_spans)}
+                       for w in sorted(outside, key=lambda w: w[2])[-5:]]
+    tick_ms = det.drain_poll_ms
+    wait_bound_s = (det.config.batch_deadline_ms + tick_ms + 2.0) / 1e3
+    during = [s for t, s, _ in lone_during if cycle_b.t0 <= t <= cycle_b.t1]
+    outcome_a = cycle_a.result.get("outcome") or {}
+    divergence = outcome_a.get("divergence") or {}
+    fine_tunes = [s["seconds"] for s in seams if s["seam"] == "rollout_fine_tune"]
+    capacity_doc = slo_traffic["capacity"]
+    result = dict(
+        card=smi, setup_s=setup_s, fit_s=fit_s, n_detect=LIFECYCLE_DETECT,
+        socket_lines_per_s=LIFECYCLE_DETECT / (t_last - sent["t_first"]),
+        sender_lines_per_s=LIFECYCLE_DETECT / (sent["t_sent"] - sent["t_first"]),
+        cycle={"verdict": outcome_a.get("result"), "version": cycle_a.result.get("version"),
+               "rows": cycle_a.result.get("rows"), "fine_tune": cycle_a.result.get("fine_tune"),
+               "fine_tune_s": fine_tunes[0] if fine_tunes else None,
+               "elapsed_s": cycle_a.result.get("elapsed_s"),
+               "window_s": cycle_a.t1 - cycle_a.t0,
+               "shadow_samples": divergence.get("samples"),
+               "shadow_ticks": -(-(divergence.get("samples") or 0) // 256),
+               "mean_abs_delta": divergence.get("mean_abs_delta"),
+               "flip_ratio": divergence.get("flip_ratio"), "why": outcome_a.get("why"),
+               "swap": outcome_a.get("swap")},
+        second_cycle={"verdict": (cycle_b.result.get("outcome") or {}).get("result"),
+                      "rows": cycle_b.result.get("rows"),
+                      "fine_tune": cycle_b.result.get("fine_tune"),
+                      "window_s": cycle_b.t1 - cycle_b.t0},
+        fine_tune_s=fine_tunes, sampler=sampler_after,
+        release_wait_ms={"outside_max": max((w[2] for w in outside), default=0.0) * 1e3,
+                         "inside_max": max((w[2] for w in inside), default=0.0) * 1e3,
+                         "outside_releases": len(outside), "inside_releases": len(inside),
+                         "bound": wait_bound_s * 1e3, "slowest_outside": slowest_outside,
+                         "shifted_stream_max": max((w[2] for w in shifted_waits),
+                                                   default=0.0) * 1e3,
+                         "shifted_stream_releases": len(shifted_waits)},
+        manager_verbs={name: [round(v["seconds"], 4) for v in verbs if v["seam"] == name]
+                       for name in ("run_cycle", "shadow_tick", "promote", "rollback",
+                                    "inject_candidate")},
+        monitor_tick_ms={"count": len(ticks),
+                         "max": max((t["seconds"] for t in ticks), default=0.0) * 1e3,
+                         "mean": (sum(t["seconds"] for t in ticks) / max(1, len(ticks))) * 1e3},
+        lone_p50_ms={"outside": float(np.percentile(latencies, 50) * 1e3),
+                     "during_cycle": (float(np.percentile(during, 50) * 1e3)
+                                      if during else None),
+                     "during_count": len(during)},
+        lone_p99_ms=float(np.percentile(latencies, 99) * 1e3),
+        swaps=swaps, swap_series=swap_series,
+        broken={"version": broken_version, "status": broken_entry["status"],
+                "mean_abs_delta": broken_entry["meta"].get("divergence", {}).get(
+                    "mean_abs_delta"),
+                "events": len(holdback_events), "holdback_metric": holdbacks},
+        drift={"evaluations_to_detect": drifting.get("ticks", 0) - ticks0,
+               "stats": drifting.get("stats"), "thresholds": drifting.get("thresholds"),
+               "baseline": drifting.get("baseline"), "events": drift_events,
+               "drift_cycles": [e["version"] for e in drift_entries],
+               "shifted_lines_per_s_sent": LIFECYCLE_SHIFTED / (
+                   shifted_sent["t_sent"] - shifted_sent["t_first"])},
+        capacity={"probe": slo_probe["capacity"], "traffic": capacity_doc,
+                  "probe_failures": len(probe_failures)},
+        slo_burn=slo_traffic["burn"],
+        lines_sent=lines_sent, read_lines=read_lines, alerts=len(ids),
+        unique_alerts=len(by_id), anomalies=len(anomalies), recall=recall,
+        shifted_alerts=len(shifted_ids), shifted_unique_alerts=len(set(shifted_ids)),
+        launches=counts["candidate_lse"], launch_counts=counts, variants=variants,
+        replayed_launches=graph,
+        xla={"totals": xla["totals"],
+             "model_swap_captures": [c for c in xla["compiles"] if c["where"] == "model_swap"]},
+        final_status={k: status[k] for k in ("live_version", "detector_version", "history")})
+    emit("lifecycle", **result)
+    failures = []
+    if device == "cuda" and result["release_wait_ms"]["outside_max"] > wait_bound_s * 1e3:
+        failures.append(f"a release outside the cycles waited "
+                        f"{result['release_wait_ms']['outside_max']:.3f} ms")
+    if read_lines != lines_sent:
+        failures.append(f"read {read_lines} lines of {lines_sent} sent")
+    if len(by_id) != len(ids) or len(set(shifted_ids)) != len(shifted_ids):
+        failures.append("an alert was received twice")
+    if recall < 0.9:
+        failures.append(f"recall {recall}")
+    if outcome_a.get("result") not in ("promoted", "holdback"):
+        failures.append(f"(a)'s cycle gave no verdict: {cycle_a.result}")
+    if xla["totals"]["unexpected"] or result["xla"]["model_swap_captures"]:
+        failures.append(f"captures: {result['xla']}")
+    for swap in swaps:
+        if swap["failures"]:
+            failures.append(f"{swap['action']}: {swap['failures']}")
+    if not any('result="promoted"' in k for k in swap_series["model_swaps_total"]) or \
+            not any('result="rolled_back"' in k for k in swap_series["model_swaps_total"]) or \
+            not swap_series["model_version_info"] or \
+            not swap_series["model_shadow_divergence_count"]:
+        failures.append(f"the swap series are not exported: {swap_series}")
+    if broken_entry["status"] != "holdback" or not holdback_events or holdbacks < 1:
+        failures.append(f"(c) the broken candidate was not held back: {result['broken']}")
+    if "drift_detected" not in drift_events or not drift_entries:
+        failures.append(f"(d) no drift_detected or no drift cycle: {result['drift']}")
+    stats, limits = drifting.get("stats") or {}, drifting.get("thresholds") or {}
+    if not ((stats.get("ks") or 0) > limits.get("ks", 1) or
+            (stats.get("psi") or 0) > limits.get("psi", 1e9)):
+        failures.append(f"(d) model_drift_score under its thresholds: {stats}")
+    if slo_probe["capacity"]["capacity_source"] != "probe" or probe_failures or \
+            not slo_probe["capacity"]["capacity_lines_per_s"]:
+        failures.append(f"(e) no probed capacity: {result['capacity']}")
+    if not capacity_doc or capacity_doc["capacity_source"] != "traffic":
+        failures.append(f"(e) no modeled capacity from traffic: {capacity_doc}")
+    if counts["candidate_lse"] < 1 or counts["flash_forward"] or counts["flash_dq"] \
+            or counts["flash_dkv"]:
+        failures.append(f"launches {counts}")
+    if device == "cuda":
+        try:
+            check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"],
+                                "lifecycle")
+        except AssertionError as exc:
+            failures.append(str(exc))
+        if graph["candidate_lse"] > counts["candidate_lse"] or graph["candidate_lse"] < 1:
+            failures.append(f"replayed {graph}, launched {counts}")
+    if runner.is_alive():
+        failures.append("the service did not shut down")
+    if failures:
+        raise AssertionError(f"the lifecycle phase failed: {failures}")
+    return result
+
+
+def lifecycle_swap_check(det, mgr, ledger, compiles0: int, action: str, outcome: dict,
+                         msgs, port: int) -> dict:
+    """After one swap over the admin plane: no unexpected capture and no
+    capture under ``model_swap``; every warm bucket's replay bit-equal to
+    its eager call on the new weights; the installed version's stored
+    state scored as a candidate bit-equal to the live weights."""
+    version = outcome["version"]
+    entry = mgr.store.entry(version)
+    params = det.load_params_checkpoint(str(mgr.store.root / entry["dir"]))[0]
+    captures = _swap_captures(ledger, compiles0)
+    xla = _http("GET", port, "/admin/xla")[1]
+    with uncounted(det):
+        checks = replay_vs_eager(det, "lifecycle_mlp", f"{action}_v{version}",
+                                 det._active_buckets(), msgs) \
+            if det._device.type == "cuda" else []
+    cand = candidate_vs_live(det, params, msgs)
+    row = {"action": action, "version": version, "result": outcome["result"],
+           "install": outcome["swap"].get("install"),
+           "model_swap_captures": len([c for c in captures if c["where"] == "model_swap"]),
+           "captures": len(captures), "unexpected": xla["totals"]["unexpected"],
+           "candidate_vs_live": cand, "replay_vs_eager": len(checks),
+           "live_version": _http("GET", port, "/admin/model")[1]["live_version"]}
+    failures = []
+    if row["model_swap_captures"] or row["captures"] or row["unexpected"]:
+        failures.append(f"captures {captures}, unexpected {row['unexpected']}")
+    if not cand["bit_equal"]:
+        failures.append(f"candidate against live: {cand}")
+    if row["live_version"] != version or det.model_version() != version:
+        failures.append(f"live {row['live_version']}, detector {det.model_version()}")
+    row["failures"] = failures
+    emit("lifecycle_swap", **row)
+    return row
+
+
+def int8_lifecycle(det, msgs) -> dict:
+    """(f): phase 10's int8w detector fine-tuned on 512 of its detect
+    messages and the candidate installed: the gate judged again (rows and
+    flips), every warm bucket re-captured as an expected capture, none
+    unexpected, replays bit-equal to eager, and the state's bytes equal to
+    ``quant_stats``."""
+    tokens, ok = det._featurize_raw_batch(msgs[:512])
+    if not ok.all():
+        raise AssertionError("a message of the int8w fine-tune did not featurize")
+    ledger = det._ledger
+    before = ledger.snapshot()["totals"]
+    kind_keys = {bucket for _, bucket in det._warm.keys()}
+    # the path: launch counts 0 just before, read just after
+    reset_launches()
+    replays0 = replayed(det)
+    t0 = time.perf_counter()
+    params, opt_state, info = det.rollout_fine_tune(tokens, seed=1)
+    torch.cuda.synchronize()
+    fine_tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swap = det.install_candidate(params, opt_state, version=1)
+    install_s = time.perf_counter() - t0
+    counts = read_launches()
+    variants = read_variants()["candidate_lse"]
+    graph = replay_delta(det, replays0)
+    captures = _swap_captures(ledger, before["compiles"])
+    unexpected = ledger.snapshot()["totals"]["unexpected"] - before["unexpected"]
+    report = swap["int8"]
+    with uncounted(det):
+        checks = replay_vs_eager(det, "int8w_mlp", "install",
+                                 [32, CALL_SIZE, INT8_CONFIG["max_batch"]], msgs)
+    state_bytes = None if det._qstate is None else sum(
+        t.numel() * t.element_size() for leaf in det._qstate.values() for t in leaf)
+    quant_bytes = report.get("bytes") or {}
+    recaptured = {int(c["bucket"]) for c in captures
+                  if c["where"] == "int8_activate" and not c["unexpected"]}
+    result = dict(fine_tune=info, fine_tune_s=fine_tune_s, install_s=install_s,
+                  install=swap["install"], gate=report, captures=len(captures),
+                  recaptured_buckets=sorted(recaptured), warm_buckets=sorted(kind_keys),
+                  model_swap_captures=len([c for c in captures if c["where"] == "model_swap"]),
+                  unexpected=unexpected, launches=counts["candidate_lse"],
+                  launch_counts=counts, variants=variants, replayed_launches=graph,
+                  state_bytes=state_bytes, quant_bytes=quant_bytes, replay_vs_eager=checks)
+    emit("int8w_lifecycle", **result)
+    failures = []
+    if report.get("where") != "install" or report.get("rows") != 512 or "flips" not in report:
+        failures.append(f"the gate was not judged again: {report}")
+    if not kind_keys <= recaptured:
+        failures.append(f"warm buckets {sorted(kind_keys)} re-captured {sorted(recaptured)}")
+    if unexpected or result["model_swap_captures"]:
+        failures.append(f"{unexpected} unexpected captures, "
+                        f"{result['model_swap_captures']} under model_swap")
+    if report.get("activated") and state_bytes != (quant_bytes.get("int8_bytes", 0)
+                                                   + quant_bytes.get("float_bytes", 0)):
+        failures.append(f"resident {state_bytes} B against quant_stats {quant_bytes}")
+    # the gate's two passes over the 512-row parity corpus, 16 chunks each,
+    # replayed on the card
+    replayed_all = det._device.type != "cuda" or counts["candidate_lse"] == graph["candidate_lse"]
+    if not replayed_all or counts["candidate_lse"] != 32 or counts["flash_forward"]:
+        failures.append(f"launches {counts}, replayed {graph}")
+    check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"],
+                        "int8w lifecycle")
+    if failures:
+        raise AssertionError(f"the int8w lifecycle check failed: {failures}")
+    return result
+
+
+def logbert_expected_lifecycle(steps: int, chunks: int, depth: int) -> dict:
+    """The LogBERT check's launches: each train step runs the flash forward,
+    dQ and dK/dV once per layer; each shadow chunk (live, replayed, and
+    candidate, op by op) the forward once per layer and the fused head
+    once."""
+    return {"flash_forward": (steps + 2 * chunks) * depth, "flash_dq": steps * depth,
+            "flash_dkv": steps * depth, "candidate_lse": 2 * chunks,
+            "replayed_candidate_lse": chunks, "replayed_flash_forward": chunks * depth}
+
+
+def logbert_lifecycle(det, msgs) -> dict:
+    """The LogBERT check: ``rollout_fine_tune`` on 256 sampled rows (8
+    steps through the flash forward, dQ and dK/dV), ``rollout_scores`` of
+    live and candidate, ``install_candidate``; then the 256 bucket's replay
+    bit-equal to its eager call, the candidate's scores bit-equal to the
+    live scores, and no capture at all."""
+    tokens, ok = det._featurize_raw_batch(msgs[:LOGBERT_LIFECYCLE_ROWS])
+    if not ok.all():
+        raise AssertionError("a message of the LogBERT fine-tune did not featurize")
+    ledger = det._ledger
+    before = ledger.snapshot()["totals"]
+    reset_launches()
+    replays0 = replayed(det)
+    t0 = time.perf_counter()
+    params, opt_state, info = det.rollout_fine_tune(tokens, seed=1)
+    torch.cuda.synchronize()
+    fine_tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live = det.rollout_scores(None, tokens)
+    cand = det.rollout_scores(params, tokens)
+    shadow_s = time.perf_counter() - t0
+    counts = read_launches()
+    variants = read_variants()
+    graph = replay_delta(det, replays0)
+    swap = det.install_candidate(params, opt_state, version=1)
+    captures = _swap_captures(ledger, before["compiles"])
+    with uncounted(det):
+        checks = replay_vs_eager(det, "logbert", "install", [LOGBERT_CALL], msgs)
+    after = candidate_vs_live(det, params, msgs, rows=LOGBERT_LIFECYCLE_ROWS)
+    bucket = det.config.train_batch_size
+    expected = logbert_expected_lifecycle(info["steps"], -(-len(tokens) // bucket),
+                                          LOGBERT_CONFIG["depth"])
+    delta = np.abs(live - cand)
+    result = dict(fine_tune=info, fine_tune_s=fine_tune_s, shadow_s=shadow_s,
+                  shadow_mean_abs_delta=float(delta.mean()), install=swap["install"],
+                  captures=len(captures), candidate_vs_live=after,
+                  launch_counts=counts, expected_launches=expected, variants=variants,
+                  replayed_launches=graph, replay_vs_eager=checks)
+    emit("logbert_lifecycle", **result)
+    failures = []
+    if info["steps"] != LOGBERT_LIFECYCLE_ROWS // bucket:
+        failures.append(f"{info['steps']} train steps")
+    for name in ("candidate_lse", "flash_forward", "flash_dq", "flash_dkv"):
+        if counts[name] != expected[name]:
+            failures.append(f"{name} launched {counts[name]}, expected {expected[name]}")
+    if det._device.type == "cuda" and (
+            graph["candidate_lse"] != expected["replayed_candidate_lse"]
+            or graph["flash_forward"] != expected["replayed_flash_forward"]):
+        failures.append(f"replayed {graph}")
+    want = {name: {"wgmma_tma_d64": counts[name]}
+            for name in ("flash_forward", "flash_dq", "flash_dkv")}
+    if {name: variants[name] for name in want} != want:
+        failures.append(f"flash variants {variants}")
+    if captures or not after["bit_equal"] or not np.isfinite(cand).all():
+        failures.append(f"captures {captures}, candidate against live {after}")
+    try:
+        check_head_variants(variants["candidate_lse"], "wgmma_tma_d256_",
+                            counts["candidate_lse"], "LogBERT lifecycle")
+    except AssertionError as exc:
+        failures.append(str(exc))
+    if failures:
+        raise AssertionError(f"the LogBERT lifecycle check failed: {failures}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2182,11 +2957,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8, int8_det = phase_int8_detector(mlp["lines_per_s"])
     phase_checkpoints({"gru": gru_det, "int8w_mlp": int8_det})
+    int8_lc = int8_lifecycle(int8_det, make_messages(INT8_CONFIG["max_batch"],
+                                                     anomaly_rate=0.01, seed=1)[0])
     del gru_det, int8_det
     torch.cuda.empty_cache()
     service = phase_service(_smi, frames["lines_per_s"])
     torch.cuda.empty_cache()
     coalesce = phase_coalesce(_smi)
+    torch.cuda.empty_cache()
+    lifecycle = phase_lifecycle(_smi)
+    logbert_lc = logbert["lifecycle"]
     mlp_row = lse_times[(CALL_SIZE, 128)]
     kernels = [{
         "name": "candidate_lse",
@@ -2196,20 +2976,30 @@ def main() -> int:
         "launches": (mlp["launches"] + frames["launches"]
                      + logbert["launch_counts"]["candidate_lse"]
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]
-                     + service["launches"] + coalesce["launches"]),
+                     + service["launches"] + coalesce["launches"] + lifecycle["launches"]
+                     + int8_lc["launches"] + logbert_lc["launch_counts"]["candidate_lse"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
                              "int8w_mlp": int8["launches"], "service": service["launches"],
-                             "coalesce": coalesce["launches"]},
-        # every launch above ran as part of a CUDA-graph replay
+                             "coalesce": coalesce["launches"],
+                             "lifecycle": lifecycle["launches"],
+                             "int8w_lifecycle": int8_lc["launches"],
+                             "logbert_lifecycle": logbert_lc["launch_counts"]["candidate_lse"]},
+        # every launch of the serving paths ran as part of a CUDA-graph
+        # replay; on the lifecycle paths the candidate's shadow chunks run
+        # op by op
         "replayed_by_path": {"mlp": mlp["replayed_launches"]["candidate_lse"],
                              "mlp_frames": frames["replayed_launches"]["candidate_lse"],
                              "logbert": logbert["replayed_launches"]["candidate_lse"],
                              "gru": gru["replayed_launches"]["candidate_lse"],
                              "int8w_mlp": int8["replayed_launches"]["candidate_lse"],
                              "service": service["replayed_launches"]["candidate_lse"],
-                             "coalesce": coalesce["replayed_launches"]["candidate_lse"]},
+                             "coalesce": coalesce["replayed_launches"]["candidate_lse"],
+                             "lifecycle": lifecycle["replayed_launches"]["candidate_lse"],
+                             "int8w_lifecycle": int8_lc["replayed_launches"]["candidate_lse"],
+                             "logbert_lifecycle":
+                                 logbert_lc["replayed_launches"]["candidate_lse"]},
         "max_abs_err": lse_err,
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
@@ -2224,7 +3014,10 @@ def main() -> int:
                                 "gru": gru["variants"],
                                 "int8w_mlp": int8["variants"],
                                 "service": service["variants"],
-                                "coalesce": coalesce["variants"]},
+                                "coalesce": coalesce["variants"],
+                                "lifecycle": lifecycle["variants"],
+                                "int8w_lifecycle": int8_lc["variants"],
+                                "logbert_lifecycle": logbert_lc["variants"]["candidate_lse"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],
@@ -2246,12 +3039,25 @@ def main() -> int:
             "name": fn_name, "route": "cuda",
             "source": "detectmateservice_tpu_torch/ops/csrc/flash.cu",
             "replaces": replaces[kind],
-            "launches": logbert["launch_counts"][fn_name],
+            "launches": (logbert["launch_counts"][fn_name]
+                         + logbert_lc["launch_counts"][fn_name]),
             "max_abs_err": flash_err[fn_name],
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "shape", "variant",
                                          "bound_share")},
-            "launches_by_variant": logbert["variants"][fn_name],
+            # the MLP lifecycle paths launch no flash kernel
+            "launches_by_path": {"logbert": logbert["launch_counts"][fn_name],
+                                 "lifecycle": lifecycle["launch_counts"][fn_name],
+                                 "int8w_lifecycle": int8_lc["launch_counts"][fn_name],
+                                 "logbert_lifecycle": logbert_lc["launch_counts"][fn_name]},
+            "replayed_by_path": {"logbert": logbert["replayed_launches"][fn_name],
+                                 "lifecycle": lifecycle["replayed_launches"][fn_name],
+                                 "int8w_lifecycle": int8_lc["replayed_launches"][fn_name],
+                                 "logbert_lifecycle":
+                                     logbert_lc["replayed_launches"][fn_name]},
+            "launches_by_variant": {"logbert": logbert["variants"][fn_name],
+                                    "lifecycle": {}, "int8w_lifecycle": {},
+                                    "logbert_lifecycle": logbert_lc["variants"][fn_name]},
         }
         if kind in MAIN_PATH_WGMMA:
             entry["ptxas"] = main_path_ptxas[MAIN_PATH_WGMMA[kind]]

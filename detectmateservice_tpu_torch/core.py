@@ -26,9 +26,19 @@ without ``device: cpu``) raises from ``setup_io``, and the Service does not
 start. The admin plane reaches the component's device state only through
 the engine's loop thread (``Engine.call_in_loop``).
 
-The JAX Service's rollout, drift, capacity, telemetry, shed, fault plans,
-profiling, compile cache and coordinator are not ported (their settings
-raise in ``settings.py``).
+The model lifecycle: with ``rollout_enabled`` a component with the
+rollout seams (``install_candidate``) gets a ``RolloutManager`` (its thread,
+its versioned store under ``rollout_dir``), with ``drift_enabled`` a
+``DriftMonitor`` over the manager's reservoir and store, with
+``capacity_enabled`` a component with ``set_capacity_tap`` a
+``CapacityMonitor``; a component without the hooks gets a warning and no
+subsystem. The threadless ``SloTracker`` serves ``GET /admin/slo``. These
+threads reach the device through the detector's seams (``graphs.py`` says
+how they serialize with the dispatch path). At teardown drift and capacity
+stop first, then the manager, and only then the engine and the component.
+
+The JAX Service's telemetry, shed, fault plans, profiling, compile cache
+and coordinator are not ported (their settings raise in ``settings.py``).
 """
 from __future__ import annotations
 
@@ -223,10 +233,53 @@ class Service:
             register_check=settings.recompile_alert_enabled, metrics=m)
         if settings.watchdog_enabled:
             self.health.start()
+        self._start_lifecycle()
 
         self._running_metric = m.ENGINE_RUNNING().labels(**self._labels)
         self._starts_metric = m.ENGINE_STARTS().labels(**self._labels)
         self._running_metric.state("stopped")
+
+    def _start_lifecycle(self) -> None:
+        """The rollout manager, the drift and capacity monitors (each only
+        when enabled, and only for a component with the hooks), and the SLO
+        tracker."""
+        settings, component = self.settings, self.library_component
+        self.rollout = None
+        if settings.rollout_enabled:
+            if callable(getattr(component, "install_candidate", None)):
+                from .rollout import RolloutManager
+
+                self.rollout = RolloutManager(component, settings, labels=dict(self._labels),
+                                              monitor=self.health, logger=self.logger)
+                self.rollout.start()
+            else:
+                self.logger.warning(
+                    "rollout_enabled but component %r has no rollout hooks; "
+                    "model lifecycle disabled for this stage", settings.component_type)
+        self.drift = None
+        self.capacity = None
+        if settings.drift_enabled and self.rollout is not None:
+            from .obs import DriftMonitor
+
+            self.drift = DriftMonitor(settings, sampler=self.rollout.sampler,
+                                      store=self.rollout.store, rollout=self.rollout,
+                                      labels=dict(self._labels), monitor=self.health,
+                                      logger=self.logger)
+            self.drift.start()
+        if settings.capacity_enabled:
+            if callable(getattr(component, "set_capacity_tap", None)):
+                from .obs import CapacityMonitor
+
+                self.capacity = CapacityMonitor(component, settings, labels=dict(self._labels),
+                                                logger=self.logger)
+                self.capacity.start()
+            else:
+                self.logger.warning(
+                    "capacity_enabled but component %r has no capacity tap; "
+                    "capacity model disabled for this stage", settings.component_type)
+        from .obs import SloTracker
+
+        self.slo = SloTracker()
 
     # ------------------------------------------------------------------
     def get_config_schema(self) -> Type[CoreConfig]:
@@ -313,6 +366,16 @@ class Service:
             if self._torn_down:
                 return
             self._torn_down = True
+        # drift may be inside a cycle of the manager and capacity holds a
+        # tap into the detector: both quiesce before what they observe, and
+        # the manager before the engine releases the device
+        for monitor, what in ((self.drift, "drift"), (self.capacity, "capacity"),
+                              (self.rollout, "rollout")):
+            if monitor is not None:
+                try:
+                    monitor.stop()
+                except Exception as exc:  # noqa: BLE001 — teardown goes on
+                    self.logger.error("%s stop failed: %s", what, exc)
         try:
             self.stop()
         except Exception as exc:  # noqa: BLE001 — teardown goes on

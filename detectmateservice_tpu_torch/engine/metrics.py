@@ -163,3 +163,53 @@ DEADLINE_RELEASES = _series(
     "Coalesced micro-batch releases by reason: full (target occupancy "
     "reached), deadline (latency budget spent), flush (idle/teardown)",
     ("component_type", "component_id", "reason"))
+
+# the model lifecycle (rollout/): cutovers by outcome (promoted,
+# rolled_back, holdback, pinned, failed); the per-row |candidate - live|
+# score delta while a candidate shadows; the newest stored checkpoint's age,
+# read at scrape time off the store's manifest; and a constant-1 gauge
+# whose labels carry the live version and model family
+MODEL_SWAPS = _series(
+    Counter, "model_swaps_total",
+    "Model hot-swap/cutover attempts by outcome: promoted, rolled_back, "
+    "holdback (canary gate refused), pinned, failed",
+    ("component_type", "component_id", "result"))
+MODEL_SHADOW_DIVERGENCE = _series(
+    Histogram, "model_shadow_divergence",
+    "Per-row |candidate - live| score delta while a candidate shadows",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 25.0))
+MODEL_CHECKPOINT_AGE = _series(
+    Gauge, "model_checkpoint_age_seconds",
+    "Seconds since the rollout store's newest checkpoint was committed "
+    "(read at scrape time; ages from manager start when none exists yet)")
+MODEL_VERSION_INFO = _series(
+    Gauge, "model_version_info",
+    "Constant 1; the labels carry the live model checkpoint version and "
+    "model family (0 = the boot-time fit, never hot-swapped)",
+    ("component_type", "component_id", "version", "model"))
+
+# drift and capacity (obs/): the live score distribution against the
+# baseline pinned at promote time (stat="ks": two-sample Kolmogorov-Smirnov;
+# stat="psi": population stability index), the token columns over the
+# per-feature PSI threshold, the modeled capacity of this replica and the
+# offered rate over it
+MODEL_DRIFT_SCORE = _series(
+    Gauge, "model_drift_score",
+    "Live-vs-baseline score-distribution divergence, by statistic: "
+    "stat=\"ks\" (two-sample Kolmogorov–Smirnov) or stat=\"psi\" "
+    "(population stability index)",
+    ("component_type", "component_id", "stat"))
+MODEL_DRIFT_FEATURES = _series(
+    Gauge, "model_drift_features_over_threshold",
+    "Token feature columns whose per-feature PSI against the pinned "
+    "baseline exceeds drift_feature_psi_threshold")
+REPLICA_CAPACITY = _series(
+    Gauge, "replica_capacity_lines_per_s",
+    "Modeled scoring capacity of this replica (lines/s at full device "
+    "busy): rows ÷ device-seconds over the live window, or the idle "
+    "micro-probe's measured rate when no traffic flows")
+CAPACITY_HEADROOM = _series(
+    Gauge, "capacity_headroom_ratio",
+    "Offered line rate ÷ modeled capacity (0 = idle, 1 = saturated); the "
+    "predictive scale-out signal beside the reactive backlog gauge")

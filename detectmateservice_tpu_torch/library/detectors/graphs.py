@@ -38,10 +38,26 @@ itself leave the counts as they were.
 
 On the CPU there is no graph: a "capture" is the eager call on a zero batch
 that ``setup_io`` made before graphs, recorded in the ledger the same way,
-and ``run`` scores eagerly.
+and ``run`` scores eagerly under the warm set's lock.
 
 Captures run only on a thread that owns the detector's device work: never
 while a background fit runs on another thread (``owner_ok``).
+
+**Other threads' device work.** The model lifecycle's threads (the rollout
+manager, the drift and capacity monitors, an admin verb) reach the device
+through the detector's rollout seams, never through ``Engine.call_in_loop``:
+a fine-tune takes seconds, and the engine loop would stop reading for as
+long. Instead each seam enqueues its device work on the detector's stream
+(the thread's current stream, the one the dispatch path uses) inside the
+warm set's ``lock``, one unit at a time: a fine-tune one train step per
+acquisition (never across steps, so replays interleave), a shadow or probe
+pass one chunk per acquisition, an install its whole in-place copy. Since a
+capture holds the same lock and first synchronizes the device, nothing ever
+captures while another thread has device work in flight on that stream, and
+no replay is queued between two halves of a swap. Training captures
+nothing and replays nothing from the warm set. The seams refuse to run
+while a background fit runs on another thread (an install waits for it to
+end), so a probe or a shadow pass never overlaps a fit.
 """
 from __future__ import annotations
 
@@ -109,13 +125,20 @@ class WarmSet:
         self._pool = None
         # one lock over captures and replays: every graph shares one pool
         # and one stream, and a replay's static buffers are its own only
-        # from its input copy to the copy of its output
+        # from its input copy to the copy of its output; other threads'
+        # device work enqueues under it too (``lock``)
         self._lock = threading.RLock()
         # replays by (kind, bucket), the kernel launches they added by
         # wrapper name, and captures made
         self.replays: Dict[Tuple[str, int], int] = collections.Counter()
         self.replay_launches: Dict[str, int] = collections.Counter()
         self.captures = 0
+
+    @property
+    def lock(self) -> threading.RLock:
+        """The lock a thread holds while it enqueues device work on the
+        detector's stream outside a replay (see the module docstring)."""
+        return self._lock
 
     # -- reads -----------------------------------------------------------
     def keys(self) -> List[Tuple[str, int]]:
@@ -184,12 +207,13 @@ class WarmSet:
     def run(self, kind: str, host_tokens: torch.Tensor) -> torch.Tensor:
         """Scores of ``host_tokens`` ([bucket, S], the wire format; pinned
         on CUDA) through the (kind, bucket) graph, captured first if it is
-        missing or stale. On the CPU: the eager call."""
+        missing or stale. On the CPU: the eager call, under the same lock."""
         bucket = int(host_tokens.shape[0])
         if not self.has(kind, bucket):
             self.capture(kind, bucket, host_tokens)
         if not self.cuda:
-            return self._eager(kind, host_tokens)
+            with self._lock:   # no eager call reads half of a swap
+                return self._eager(kind, host_tokens)
         with self._lock:
             entry = self._entries.get((kind, bucket))
             if entry is None or entry.ident is not self._ident(kind):

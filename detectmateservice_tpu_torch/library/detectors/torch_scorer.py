@@ -99,11 +99,27 @@ batch, ``detector_coalesce_depth`` and ``detector_deadline_releases_total``.
 The counters are plain Python integers: the watchdog and the admin plane
 read them from their own threads and touch no CUDA state.
 
+**The model lifecycle** (``rollout/``, ``obs/``): the seams the Service's
+rollout manager and drift and capacity monitors drive, the JAX detector's
+names and results. While a sampler is attached (``set_rollout_sampler``)
+each in-flight slot keeps its token rows and the drain offers them paired
+with their scores; ``set_capacity_tap`` gets ``(rows, device_seconds)`` of
+every observed batch. ``rollout_fine_tune`` trains a clone of the live
+module and optimizer state (the live weights stay bit-equal);
+``rollout_scores`` scores the live weights through the warm set (``None``)
+or a candidate state dict op by op, both at the train bucket;
+``install_candidate`` copies a candidate into the live weights' storage in
+place, so every captured graph stays valid (a float swap captures nothing;
+under ``int8w`` the gate is judged again and the warm set re-captured).
+These run on the caller's thread and enqueue under the warm set's lock
+(``graphs.py``); a failure raises, and nothing retries on the CPU.
+
 Options of the JAX detector that later slices port raise ``LibraryError``
 when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import math
@@ -223,13 +239,15 @@ class _InflightSlot:
     time (for a coalesced release the oldest held row's arrival, so the
     queue wait includes the hold), ``t_start`` when scoring began (worker
     pickup), and ``release`` why the coalescer let the batch go
-    (full/deadline/flush; None uncoalesced)."""
+    (full/deadline/flush; None uncoalesced). ``tokens`` keeps the batch's
+    token rows only while a rollout sampler is attached (the drain offers
+    them with their scores)."""
 
     __slots__ = ("scores", "event", "raws", "real", "path", "bucket", "error", "done",
-                 "t_enqueue", "t_start", "release")
+                 "t_enqueue", "t_start", "release", "tokens")
 
     def __init__(self, raws, real: int, path: str, bucket: int,
-                 release: Optional[str] = None):
+                 release: Optional[str] = None, tokens: Optional[np.ndarray] = None):
         self.scores: Any = None
         self.event: Optional[torch.cuda.Event] = None
         self.raws = raws
@@ -241,6 +259,7 @@ class _InflightSlot:
         self.t_enqueue = time.monotonic()
         self.t_start: Optional[float] = None
         self.release = release
+        self.tokens = tokens
 
 
 class _ChainRaws:
@@ -504,6 +523,14 @@ class TorchScorerDetector(CoreDetector):
         self._upload_queue: Optional[queue.Queue] = None
         self._upload_threads: List[threading.Thread] = []
         self._dispatch_hb = None
+        # the model lifecycle: the rollout manager's traffic sampler (the
+        # drain offers each batch's rows with their scores), the capacity
+        # monitor's per-batch tap, the installed checkpoint version (0 = the
+        # boot-time fit), and the meta-device skeleton candidates score on
+        self._rollout_sampler = None
+        self._capacity_tap = None
+        self._model_version = 0
+        self._candidate: Optional[_ServingModule] = None
 
     def _validate_static_config(self) -> None:
         """Reject bad or not-yet-ported config at construction."""
@@ -1246,8 +1273,11 @@ class TorchScorerDetector(CoreDetector):
         self._ensure_scorer()
         n = len(tokens)
         cap = self.config.host_score_max_batch
+        # token rows ride the slot only while a sampler will take them
+        keep_tokens = self._rollout_sampler is not None
         if 0 < n <= cap and self._host_model is not None:
-            slot = _InflightSlot(msgs, n, path="host", bucket=n, release=release)
+            slot = _InflightSlot(msgs, n, path="host", bucket=n, release=release,
+                                 tokens=tokens if keep_tokens else None)
             if t_enqueue is not None:
                 slot.t_enqueue = t_enqueue
             slot.t_start = time.monotonic()
@@ -1270,7 +1300,8 @@ class TorchScorerDetector(CoreDetector):
             self._ensure_upload_workers()
         for start, chunk, real in _padded_chunks(tokens, bucket):
             slot = _InflightSlot(msgs[start:start + real], real, path="device",
-                                 bucket=bucket, release=release)
+                                 bucket=bucket, release=release,
+                                 tokens=chunk if keep_tokens else None)
             if t_enqueue is not None:
                 slot.t_enqueue = t_enqueue
             self._inflight.append(slot)
@@ -1528,6 +1559,10 @@ class TorchScorerDetector(CoreDetector):
             scores = slot.scores.numpy()[:slot.real]
         else:
             scores = np.asarray(slot.scores)[:slot.real]
+        if self._rollout_sampler is not None and slot.tokens is not None:
+            # rows enter the reservoir paired with the scores they got: the
+            # drift monitor reads the distribution the dispatch path served
+            self._rollout_sampler.offer_rows(slot.tokens[:slot.real], scores)
         if slot.path != "host":
             # scoring-call start to host-readable scores (the host path
             # recorded its synchronous time at dispatch)
@@ -1589,6 +1624,10 @@ class TorchScorerDetector(CoreDetector):
         self._occ_stats = (occ_n + 1, occ_sum + slot.real / slot.bucket)
         self._ledger.record_span(slot.bucket, slot.real, slot.path, queue_wait_s,
                                  max(0.0, device_s), release=slot.release)
+        tap = self._capacity_tap
+        if tap is not None:
+            # the capacity model's arithmetic: every observed batch, any path
+            tap(slot.real, max(0.0, device_s))
         if self.metrics is None:
             return
         children = self._batch_children.get(slot.path)
@@ -1647,6 +1686,210 @@ class TorchScorerDetector(CoreDetector):
                 {f"{self.name} - score": f"anomaly score {score:.4f} > {self._threshold:.4f}"})
             return True
         return False
+
+    # -- the model lifecycle (rollout/manager.py, obs/) -------------------
+    def set_rollout_sampler(self, sampler) -> None:
+        """Attach the drain-path traffic tap (``rollout/sampler.py``): one
+        ``offer_rows`` call per drained batch, rows paired with the scores
+        they got. None detaches."""
+        self._rollout_sampler = sampler
+
+    def set_capacity_tap(self, tap) -> None:
+        """Attach the capacity tap (``obs/capacity.py``): called as
+        ``tap(n_rows, device_seconds)`` per observed batch, any path. None
+        detaches."""
+        self._capacity_tap = tap
+
+    def model_version(self) -> int:
+        """The installed checkpoint version (0 = the boot-time fit)."""
+        return self._model_version
+
+    def live_threshold(self) -> float:
+        return float(self._threshold) if self._threshold is not None else float("inf")
+
+    def rollout_ready(self) -> bool:
+        """Whether a fine-tune and shadow cycle can run: fitted, with live
+        weights, and no background fit running."""
+        return self._fitted and self._fit_thread is None and self._model is not None
+
+    def _refuse_during_fit(self, what: str) -> None:
+        fit = self._fit_thread
+        if fit is not None and fit.is_alive() and threading.current_thread() is not fit:
+            raise LibraryError(f"{what} refused: a background fit owns the device")
+
+    def rollout_fine_tune(self, rows: np.ndarray, epochs: int = 1,
+                          seed: int = 0) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
+                                                  Dict[str, Any]]:
+        """Fine-tune a CANDIDATE on sampled rows: a clone of the live module
+        and of its optimizer state, trained on the caller's thread; the live
+        weights are never touched. The sample order is the JAX detector's
+        (``default_rng(seed + cfg.seed)``, batches of ``min(train_batch_size,
+        len(rows))``); a step that draws (LogBERT's masks) draws from one
+        generator seeded ``cfg.seed + 1 + seed``, as the JAX detector seeds
+        its key. Each step enqueues under the warm set's lock, released
+        between steps. Returns the candidate's ``(state_dict, optimizer state_dict,
+        {"steps", "loss", "batch_size"})``."""
+        self._ensure_scorer()
+        self._refuse_during_fit("fine-tuning")
+        cfg = self.config
+        rows = np.asarray(rows, np.int32)
+        if not len(rows):
+            raise LibraryError("no sampled rows to fine-tune on")
+        bs = min(cfg.train_batch_size, len(rows))
+        order_rng = np.random.default_rng(cfg.seed + seed)
+        generator = torch.Generator(device=self._device).manual_seed(cfg.seed + 1 + seed)
+        with self._warm.lock:
+            model = self._scorer.clone_model(self._model, self._device).requires_grad_(True)
+            optimizer = self._scorer.make_optimizer(model)
+            # load_state_dict keeps the tensors it is given: the candidate's
+            # moments must not be the live optimizer's storage
+            optimizer.load_state_dict(copy.deepcopy(self._optimizer.state_dict()))
+        loss, steps = None, 0
+        with self._ledger.context(where="rollout_fit", backend=self._obs_backend,
+                                  expected=True):
+            for _ in range(max(1, epochs)):
+                order = order_rng.permutation(len(rows))
+                for start in range(0, len(rows) - bs + 1, bs):
+                    batch = rows[order[start:start + bs]]
+                    with self._warm.lock:
+                        loss = self._scorer.train_step(model, optimizer, self._put(batch),
+                                                       generator=generator)
+                    steps += 1
+        return (model.state_dict(), optimizer.state_dict(),
+                {"steps": steps, "loss": float("nan") if loss is None else float(loss),
+                 "batch_size": bs})
+
+    def _score_with_params(self, params: Optional[Dict[str, torch.Tensor]],
+                           tokens: np.ndarray) -> torch.Tensor:
+        """Scores of a padded chunk under ``params`` (None = the live
+        weights, through the warm set's graph); a candidate scores op by op
+        on the meta-device skeleton with the live norm statistics, so live
+        and candidate scores share one unit."""
+        if params is None:
+            return self._score_dev(tokens)
+        if self._candidate is None:
+            self._candidate = _ServingModule(self._scorer)
+        leaves = {f"model.{k}": v for k, v in params.items()}
+        norm = self._norm_bufs if self._norm_dev is not None else None
+        upload = self._put(tokens)
+        with self._warm.lock:
+            return torch.func.functional_call(self._candidate, leaves, (upload, norm))
+
+    def rollout_scores(self, params: Optional[Dict[str, torch.Tensor]],
+                       tokens: np.ndarray) -> np.ndarray:
+        """Shadow scoring: [n, S] tokens → [n] fp32 scores under ``params``
+        (None = live), in padded chunks of the train bucket (warm since
+        setup), under an expected ``shadow`` ledger context."""
+        self._ensure_scorer()
+        self._refuse_during_fit("shadow scoring")
+        tokens = np.asarray(tokens, np.int32)
+        n = len(tokens)
+        if n == 0:
+            return np.zeros(0, np.float32)
+        if params is not None:
+            params = {k: v.to(self._device) for k, v in params.items()}
+        bucket = _bucket(self.config.train_batch_size, self.config.max_batch)
+        out = np.empty(n, np.float32)
+        with self._ledger.context(bucket=bucket, where="shadow", backend=self._obs_backend,
+                                  expected=True):
+            for start, chunk, real in _padded_chunks(tokens, bucket):
+                out[start:start + real] = \
+                    self._score_with_params(params, chunk).cpu().numpy()[:real]
+        return out
+
+    def _resolve_warm_set(self, warm_set: Optional[Dict[str, Any]]) -> List[int]:
+        """The live warm set UNIONED with a persisted warm-set spec (the
+        rollout manifest's): a promote on a restarted process warms what
+        the recording boot warmed. A spec for another sequence length, or a
+        malformed one, adds nothing."""
+        cfg = self.config
+        warmed = set(self._device_warm)
+        if warm_set:
+            try:
+                if int(warm_set.get("seq_len", cfg.seq_len)) == cfg.seq_len:
+                    warmed.update(b for b in (int(x) for x in warm_set.get("buckets", ()))
+                                  if 0 < b <= cfg.max_batch)
+            except (TypeError, ValueError, AttributeError):
+                pass
+        return sorted(warmed)
+
+    def install_candidate(self, params: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
+                          version: int = 0,
+                          warm_set: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Zero-downtime hot-swap: land a running boundary fit, build the
+        CPU copy's mirror of the candidate, then, under ``_fit_lock`` and the
+        warm set's lock, copy the candidate into the live weights' storage
+        on the detector's stream and swap the mirror, the optimizer state
+        and the version. Every graph reads the weights by address, so each
+        stays valid: a float swap captures nothing. A bucket the stored
+        ``warm_set`` spec adds is captured after the copy under an expected
+        ``model_swap`` context. Under ``dtype: int8w`` the candidate is
+        re-quantized and the gate judged again under the same locks, so
+        the warm set is re-captured (expected, ``int8_activate``) before any
+        replay runs. ``install`` in the result times the copy and the
+        mirror."""
+        self._ensure_scorer()
+        fit = self._fit_thread
+        if fit is not None and fit.is_alive() and threading.current_thread() is not fit:
+            # its end would overwrite the installed weights with the fit's;
+            # the backlog it held is dispatched by the dispatch thread
+            fit.join()
+        warmed = self._resolve_warm_set(warm_set)
+        t0 = time.perf_counter()
+        mirror = None
+        if self._host_scorer is not None:
+            mirror = self._host_scorer.meta_model().to_empty(device=torch.device("cpu"))
+            mirror.load_state_dict(params)
+            mirror.requires_grad_(False)
+        mirror_s = time.perf_counter() - t0
+        result: Dict[str, Any] = {"swapped": True, "version": int(version),
+                                  "prewarmed_buckets": warmed, "backend": self._obs_backend}
+        with self._ledger.context(where="model_swap", backend=self._obs_backend,
+                                  expected=True):
+            with self._fit_lock, self._warm.lock:
+                if self._int8w:
+                    # the gate below judges the new float weights: the old
+                    # int8 state stops serving (no replay runs meanwhile)
+                    self._qstate = None
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    live = self._model.state_dict()
+                    for key, tensor in live.items():
+                        tensor.copy_(params[key])
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+                copy_s = time.perf_counter() - t1
+                self._optimizer.load_state_dict(opt_state)
+                if mirror is not None:
+                    self._host_model = mirror
+                self._model_version = int(version)
+                kind = self._serve_kind()
+                for bucket in warmed:
+                    if bucket not in self._device_warm:
+                        with self._ledger.context(bucket=bucket):
+                            self._warm.capture(kind, bucket, self._zero_upload(bucket))
+                        self._device_warm.add(bucket)
+                if self._int8w:
+                    result["int8"] = self._activate_int8(where="install")
+        result["install"] = {"copy_s": copy_s, "mirror_s": mirror_s}
+        return result
+
+    def save_params_checkpoint(self, directory: str, params: Dict[str, torch.Tensor],
+                               opt_state: Dict[str, Any]) -> None:
+        """Persist an EXPLICIT state dict (a rollout candidate) with this
+        detector's state metadata: the versioned store's twin of
+        ``save_checkpoint``, which persists the live weights."""
+        save_scorer_state(directory, params, opt_state, self.state_dict(),
+                          tree_version=MODEL_TREE_VERSIONS.get(self.config.model, 1))
+
+    def load_params_checkpoint(self, directory: str):
+        """A stored version's ``(params, opt_state, meta)`` on the detector's
+        device, NOT installed (promote-by-version and rollback load through
+        here, then ``install_candidate``)."""
+        self._ensure_scorer()
+        return load_scorer_state(
+            directory, map_location=self._device,
+            accepted_tree_versions=COMPATIBLE_TREE_VERSIONS.get(self.config.model, {1}))
 
     # -- runtime reconfigure --------------------------------------------
     def validate_reconfigure(self, new_config) -> None:

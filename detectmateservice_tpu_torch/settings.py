@@ -6,8 +6,11 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
   defaults and bounds: identity, logging, the engine (``engine_*``), the
   outputs (``out_*``), the admin HTTP server (``http_*``), ``config_file``,
   ``checkpoint_dir``, the watchdog (``watchdog_*``), ``event_ring_size``,
-  ``recompile_alert_enabled`` (the capture ledger's alerts), ``log_format``, ``send_batch_max``, ``transport_backend`` and
-  ``dlq_max_attempts`` (the attempt budget of poison isolation);
+  ``recompile_alert_enabled`` (the capture ledger's alerts), ``log_format``,
+  ``send_batch_max``, ``transport_backend``, ``dlq_max_attempts`` (the
+  attempt budget of poison isolation), and the model lifecycle's
+  ``rollout_*``, ``drift_*`` and ``capacity_*`` (``rollout_enabled``
+  requires ``rollout_dir``, ``drift_enabled`` requires ``rollout_enabled``);
 * ``DETECTMATE_``-prefixed environment overrides with ``__`` nesting, env
   winning over YAML per field; strings from the environment are converted
   to the field's type;
@@ -15,7 +18,7 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
 * transport addresses checked against the JAX package's scheme set.
 
 Every field of a JAX subsystem the port does not carry yet (the replica
-router, rollout, drift, capacity, the WAL and DLQ, shed, telemetry, tracing,
+router, the WAL and DLQ, shed, telemetry, tracing,
 zero-copy framing, TLS, fault plans, the coordinator, the mesh, the compile
 cache, profiling, multi-ingress shards and the JAX platform pin) is known
 with its default: set away from it, it raises ``SettingsError`` naming the
@@ -100,34 +103,6 @@ UNPORTED: Dict[str, tuple] = {
     "router_drain_timeout_s": (5.0, "the replica router"),
     "router_credit_window": (64, "the replica router"),
     "router_health_interval_s": (2.0, "the replica router"),
-    "rollout_enabled": (False, "rollout"),
-    "rollout_dir": (None, "rollout"),
-    "rollout_interval_s": (600.0, "rollout"),
-    "rollout_sample_ratio": (0.05, "rollout"),
-    "rollout_sample_capacity": (4096, "rollout"),
-    "rollout_min_fit_rows": (256, "rollout"),
-    "rollout_train_epochs": (1, "rollout"),
-    "rollout_min_shadow_samples": (512, "rollout"),
-    "rollout_shadow_timeout_s": (300.0, "rollout"),
-    "rollout_max_mean_delta": (0.25, "rollout"),
-    "rollout_max_flip_ratio": (0.01, "rollout"),
-    "rollout_auto_promote": (True, "rollout"),
-    "rollout_keep_checkpoints": (4, "rollout"),
-    "drift_enabled": (False, "drift"),
-    "drift_interval_s": (30.0, "drift"),
-    "drift_baseline_size": (512, "drift"),
-    "drift_min_rows": (64, "drift"),
-    "drift_ks_threshold": (0.25, "drift"),
-    "drift_psi_threshold": (0.2, "drift"),
-    "drift_feature_psi_threshold": (0.25, "drift"),
-    "drift_trigger_intervals": (3, "drift"),
-    "drift_clear_intervals": (2, "drift"),
-    "drift_min_cycle_interval_s": (900.0, "drift"),
-    "capacity_enabled": (False, "capacity"),
-    "capacity_interval_s": (15.0, "capacity"),
-    "capacity_probe_rows": (256, "capacity"),
-    "capacity_probe_idle_s": (30.0, "capacity"),
-    "capacity_window_s": (60.0, "capacity"),
     "durable_ingress": (False, "the WAL"),
     "wal_dir": (None, "the WAL"),
     "wal_segment_bytes": (64 * 1024 * 1024, "the WAL"),
@@ -238,6 +213,58 @@ class ServiceSettings:
     # xla_recompile_storm check; the counter moves either way
     recompile_alert_enabled: bool = True
 
+    # -- model lifecycle (rollout/) ---------------------------------------
+    # a background trainer fine-tunes candidates on a sampled tail of live
+    # traffic, a candidate shadow-scores sampled rows beside the live model,
+    # and the gate hot-swaps it in or holds it back; needs a component with
+    # the rollout hooks (the torch scorer) and a versioned store root
+    rollout_enabled: bool = False
+    rollout_dir: Optional[str] = None
+    rollout_interval_s: float = _field(600.0, ge=0.05)
+    # the dispatch-path tap: the share of drained rows offered, and the
+    # reservoir's bound (capacity * seq_len * 4 bytes)
+    rollout_sample_ratio: float = _field(0.05, gt=0.0, le=1.0)
+    rollout_sample_capacity: int = _field(4096, ge=16, le=262144)
+    rollout_min_fit_rows: int = _field(256, ge=1)
+    rollout_train_epochs: int = _field(1, ge=1, le=100)
+    # the shadow gate: at least this many rows, then promote only while the
+    # mean |score delta| and the decision-flip ratio stay under their caps
+    rollout_min_shadow_samples: int = _field(512, ge=1)
+    rollout_shadow_timeout_s: float = _field(300.0, gt=0.0)
+    rollout_max_mean_delta: float = _field(0.25, ge=0.0)
+    rollout_max_flip_ratio: float = _field(0.01, ge=0.0, le=1.0)
+    # false: a candidate that passes waits for POST /admin/model promote
+    rollout_auto_promote: bool = True
+    # keep-N rotation (live, pinned and newest never pruned)
+    rollout_keep_checkpoints: int = _field(4, ge=1, le=64)
+
+    # -- drift and capacity (obs/) ----------------------------------------
+    # the live score distribution (the rollout reservoir's paired scores)
+    # against a baseline pinned at promote time and kept in the store's
+    # manifest; needs rollout_enabled
+    drift_enabled: bool = False
+    drift_interval_s: float = _field(30.0, ge=0.05)
+    drift_baseline_size: int = _field(512, ge=16, le=65536)
+    drift_min_rows: int = _field(64, ge=8)
+    drift_ks_threshold: float = _field(0.25, ge=0.0, le=1.0)
+    drift_psi_threshold: float = _field(0.2, ge=0.0)
+    drift_feature_psi_threshold: float = _field(0.25, ge=0.0)
+    # hysteresis: consecutive evaluations over (under) the thresholds before
+    # drift_detected (drift_cleared)
+    drift_trigger_intervals: int = _field(3, ge=1, le=1000)
+    drift_clear_intervals: int = _field(2, ge=1, le=1000)
+    # sustained drift starts a cycle at most this often (0: at every tick
+    # that finds drift)
+    drift_min_cycle_interval_s: float = _field(900.0, ge=0.0)
+    # the capacity model: rows over device-seconds while traffic flows, an
+    # idle probe through rollout_scores otherwise
+    capacity_enabled: bool = False
+    capacity_interval_s: float = _field(15.0, ge=0.05)
+    capacity_probe_rows: int = _field(256, ge=1, le=65536)
+    # probe only after this many idle seconds (0: probe at every idle tick)
+    capacity_probe_idle_s: float = _field(30.0, ge=0.0)
+    capacity_window_s: float = _field(60.0, ge=1.0)
+
     def __post_init__(self) -> None:
         hints = typing.get_type_hints(type(self))
         for f in dataclasses.fields(self):
@@ -253,6 +280,13 @@ class ServiceSettings:
             raise SettingsError(
                 "watchdog_unhealthy_seconds must be >= watchdog_stall_seconds "
                 f"({self.watchdog_unhealthy_seconds} < {self.watchdog_stall_seconds})")
+        if self.rollout_enabled and not self.rollout_dir:
+            raise SettingsError(
+                "rollout_enabled requires rollout_dir (the versioned checkpoint store root)")
+        if self.drift_enabled and not self.rollout_enabled:
+            raise SettingsError(
+                "drift_enabled requires rollout_enabled: the drift monitor reads the "
+                "rollout traffic reservoir and pins its baseline in the rollout store")
         if not self.component_id:
             if self.component_name:
                 seed = f"detectmate/{self.component_type}/{self.component_name}"

@@ -5,10 +5,13 @@ that this package's subsystems back: ``GET /metrics`` (the port's own
 registry), ``/admin/status``, ``/admin/health`` (``?deep=1`` evaluates the
 checks and answers 503 unless healthy), ``/admin/events``, ``/admin/xla``
 (the capture ledger's snapshot, ``?limit=``; host state only, no CUDA
-tensor is touched from the HTTP thread), and ``POST
-/admin/start``, ``/stop``, ``/shutdown``, ``/reconfigure``, ``/checkpoint``.
-The JAX package's other routes (``UNPORTED_ROUTES``) answer 404 until their
-subsystem is ported.
+tensor is touched from the HTTP thread), the model lifecycle's ``GET
+/admin/model`` (``?history=1`` for the checkpoint log), ``/admin/drift`` and
+``/admin/slo`` (404 where the subsystem is off), and ``POST
+/admin/start``, ``/stop``, ``/shutdown``, ``/reconfigure``, ``/checkpoint``
+and ``/model`` (``promote``, ``rollback``, ``pin``, ``unpin``, ``cycle``;
+an unknown action or a state conflict is a 400). The JAX package's other
+routes (``UNPORTED_ROUTES``) answer 404 until their subsystem is ported.
 
 Handlers take ``(service, query, payload)``: the parsed query string, and
 the decoded JSON body (``{}`` when empty; GET handlers get ``None``).
@@ -115,28 +118,103 @@ def _checkpoint(service, query, payload) -> Response:
     return Response(200, service.checkpoint())
 
 
+def _model(service, query, payload) -> Response:
+    rollout = getattr(service, "rollout", None)
+    if rollout is None:
+        return Response(404, {"detail": "model lifecycle is not enabled on "
+                                        "this stage (rollout_enabled)"})
+    if (query.get("history") or ["0"])[0] not in ("", "0", "false"):
+        limit = _int_param(query, "limit", default=0) or None
+        return Response(200, rollout.history(limit))
+    return Response(200, rollout.status())
+
+
+def _drift(service, query, payload) -> Response:
+    drift = getattr(service, "drift", None)
+    if drift is None:
+        return Response(404, {"detail": "drift monitoring is not enabled "
+                                        "on this stage (drift_enabled)"})
+    return Response(200, drift.status())
+
+
+def _slo(service, query, payload) -> Response:
+    tracker = getattr(service, "slo", None)
+    if tracker is None:
+        return Response(404, {"detail": "service has no SLO tracker"})
+    body = tracker.snapshot()
+    capacity = getattr(service, "capacity", None)
+    # the capacity model rides along: burn says how fast the budget goes,
+    # headroom says whether more traffic would make it worse
+    body["capacity"] = capacity.status() if capacity is not None else None
+    return Response(200, body)
+
+
+def _model_control(service, query, payload) -> Response:
+    from ..rollout import RolloutError, StoreError
+
+    rollout = getattr(service, "rollout", None)
+    if rollout is None:
+        return Response(404, {"detail": "model lifecycle is not enabled on "
+                                        "this stage (rollout_enabled)"})
+    payload = payload or {}
+    action = str(payload.get("action", ""))
+    version = payload.get("version")
+    if version is not None:
+        try:
+            version = int(version)
+        except (TypeError, ValueError):
+            raise ValueError("version must be an integer") from None
+    try:
+        if action == "promote":
+            return Response(200, rollout.promote(version))
+        if action == "rollback":
+            return Response(200, rollout.rollback())
+        if action == "pin":
+            return Response(200, rollout.pin(version))
+        if action == "unpin":
+            return Response(200, rollout.unpin())
+        if action == "cycle":
+            block = bool(payload.get("block", False))
+            return Response(200, rollout.run_cycle(reason="operator", block=block))
+    except (RolloutError, StoreError) as exc:
+        # state conflicts (nothing shadowing, unknown version, nothing to
+        # roll back to) are client errors, not server faults
+        raise ValueError(str(exc)) from exc
+    raise ValueError(f"unknown action {action!r} (expected 'promote', "
+                     "'rollback', 'pin', 'unpin', or 'cycle')")
+
+
 ROUTES: Tuple[Route, ...] = (
     Route("GET", "/metrics", _metrics, "Prometheus exposition"),
     Route("GET", "/admin/status", _status, "status report"),
     Route("GET", "/admin/health", _health, "liveness / deep health"),
     Route("GET", "/admin/events", _events, "structured event ring"),
     Route("GET", "/admin/xla", _xla, "capture ledger + device-batch spans"),
+    Route("GET", "/admin/model", _model,
+          "model lifecycle status (?history=1 for the checkpoint log)"),
+    Route("GET", "/admin/drift", _drift,
+          "drift monitor snapshot: live-vs-baseline stats, hysteresis state, "
+          "top drifting features"),
+    Route("GET", "/admin/slo", _slo,
+          "multi-window SLO burn rates, per-stage dwell attribution, and the "
+          "capacity model"),
     Route("POST", "/admin/start", _start, "start the engine"),
     Route("POST", "/admin/stop", _stop, "stop the engine"),
     Route("POST", "/admin/shutdown", _shutdown, "shut the service down"),
     Route("POST", "/admin/reconfigure", _reconfigure, "validate + apply component config"),
     Route("POST", "/admin/checkpoint", _checkpoint, "checkpoint component state"),
+    Route("POST", "/admin/model", _model_control,
+          "model lifecycle verbs: promote/rollback/pin/unpin/cycle"),
 )
 
 # the JAX package's routes whose subsystems are not ported: they answer 404
 UNPORTED_ROUTES: Tuple[Tuple[str, str], ...] = (
     ("GET", "/admin/trace"), ("GET", "/admin/traces"),
     ("GET", "/admin/profile"), ("GET", "/admin/load"), ("GET", "/admin/profile/latest"),
-    ("GET", "/admin/replicas"), ("GET", "/admin/model"), ("GET", "/admin/replay"),
-    ("GET", "/admin/faults"), ("GET", "/admin/dlq"), ("GET", "/admin/drift"),
-    ("GET", "/admin/slo"), ("GET", "/admin/tenants"),
+    ("GET", "/admin/replicas"), ("GET", "/admin/replay"),
+    ("GET", "/admin/faults"), ("GET", "/admin/dlq"), ("GET", "/admin/tenants"),
     ("POST", "/admin/profile"), ("POST", "/admin/load"), ("POST", "/admin/replicas"),
-    ("POST", "/admin/model"), ("POST", "/admin/faults"), ("POST", "/admin/dlq"),
+    ("POST", "/admin/faults"), ("POST", "/admin/dlq"),
     ("POST", "/admin/replay"),
 )
 

@@ -4,6 +4,7 @@ not need the card are checked on the CPU."""
 import shutil
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +15,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 import bench_torch  # noqa: E402  (the scripts live at the repo root)
 import chip_smoke  # noqa: E402
+from detectmateservice_tpu_torch.schemas import ParserSchema  # noqa: E402
 
 
 def _run(cwd, *env_pairs):
@@ -535,3 +537,93 @@ def test_coalesce_phase_on_the_cpu(monkeypatch, capsys):
     assert 256 in result["retire"]["retired_buckets"] and result["retire"]["graph_dropped"]
     assert [e["where"] for e in result["retire"]["resurrection_captures"]] == ["bucket_warm"]
     assert result["workers"]["identical"] and result["workers"]["workers_after"] == []
+
+
+def test_lifecycle_settings_are_the_defaults_but_the_named_cuts():
+    """Rollout, drift and capacity on, every other field of theirs at the
+    JAX default, and only the cuts for run time away from it."""
+    from detectmateservice_tpu_torch.settings import ServiceSettings
+
+    cuts = {"rollout_interval_s": 3600.0, "drift_interval_s": 0.5,
+            "drift_min_cycle_interval_s": 0.0, "capacity_interval_s": 0.5,
+            "capacity_probe_idle_s": 1.0}
+    switches = {"rollout_enabled": True, "drift_enabled": True, "capacity_enabled": True}
+    assert chip_smoke.LIFECYCLE_SETTINGS == {**switches, **cuts}
+    defaults = ServiceSettings()
+    for name in cuts:
+        assert getattr(defaults, name) != cuts[name]
+    assert chip_smoke.LIFECYCLE_DETECT == chip_smoke.LIFECYCLE_SHIFTED == 65536
+    assert chip_smoke.LIFECYCLE_CYCLE_AT >= defaults.rollout_min_fit_rows
+
+
+def test_lifecycle_launch_arithmetic():
+    """The LogBERT check: 8 steps of 32 rows run the forward, dQ and dK/dV
+    once per layer each; 8 shadow chunks through the live graph and 8 op by
+    op through the candidate run the forward per layer and kernel 1 once."""
+    want = chip_smoke.logbert_expected_lifecycle(steps=8, chunks=8, depth=4)
+    assert want == {"flash_forward": 96, "flash_dq": 32, "flash_dkv": 32, "candidate_lse": 16,
+                    "replayed_candidate_lse": 8, "replayed_flash_forward": 32}
+    # the detector's default train batch of 32
+    assert "train_batch_size" not in chip_smoke.LOGBERT_CONFIG
+    assert chip_smoke.LOGBERT_LIFECYCLE_ROWS // 32 == 8
+
+
+def test_shifted_stream_is_half_a_template_the_fit_never_saw():
+    msgs = chip_smoke.make_shifted_messages(400)
+    fit, _ = chip_smoke.make_messages(512, anomaly_rate=0.0)
+    templates = {ParserSchema.from_bytes(m)["template"] for m in fit}
+    new = [m for m in msgs if ParserSchema.from_bytes(m)["template"] not in templates]
+    assert 150 < len(new) < 250
+    assert len({ParserSchema.from_bytes(m)["logID"] for m in msgs}) == 400
+
+
+def test_uncounted_checks_leave_the_counts(monkeypatch):
+    stand_in = _counting_stand_in(monkeypatch)
+    det = type("Det", (), {})()
+    det._warm = type("Warm", (), {"replay_launches": Counter({"candidate_lse": 3})})()
+    stand_in.launches = 5
+    with chip_smoke.uncounted(det):
+        stand_in.launches += 7
+        stand_in.variants["x"] += 7
+        det._warm.replay_launches["candidate_lse"] += 7
+    assert stand_in.launches == 5 and not stand_in.variants
+    assert det._warm.replay_launches == {"candidate_lse": 3}
+
+
+def test_lifecycle_phase_on_the_cpu(monkeypatch, capsys):
+    """The lifecycle phase at a narrowed width on the CPU with a counting
+    stand-in for the fused head, streams of 4,096 sampled at 0.5 into a
+    reservoir of 1,024: (a) a
+    cycle under load and one with lone messages, (b) promote and rollback
+    with 0 captures and candidate scores bit-equal to live, (c) the broken
+    candidate held back, (d) drift detected and a drift cycle, (e) a probed
+    and a traffic capacity."""
+    import json
+
+    stand_in = _counting_stand_in(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "COALESCE_CPU_CHANGES",
+                        dict(chip_smoke.COALESCE_CPU_CHANGES, dim=32, min_train_steps=20))
+    monkeypatch.setattr(chip_smoke, "LIFECYCLE_DETECT", 4096)
+    monkeypatch.setattr(chip_smoke, "LIFECYCLE_SHIFTED", 4096)
+    monkeypatch.setattr(chip_smoke, "LIFECYCLE_CYCLE_AT", 512)
+    monkeypatch.setattr(chip_smoke, "LIFECYCLE_SETTINGS", dict(
+        chip_smoke.LIFECYCLE_SETTINGS, rollout_sample_ratio=0.5, rollout_sample_capacity=1024))
+    result = chip_smoke.phase_lifecycle("cpu", device="cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [line["phase"] for line in lines] == ["lifecycle_swap"] * len(result["swaps"]) + [
+        "lifecycle"]
+    assert result["read_lines"] == result["lines_sent"]
+    assert result["alerts"] == result["unique_alerts"] and result["recall"] >= 0.9
+    assert result["cycle"]["verdict"] in ("promoted", "holdback")
+    assert result["cycle"]["shadow_ticks"] == 2
+    assert [s["action"] for s in result["swaps"]][-2:] == ["promote", "rollback"]
+    assert all(s["candidate_vs_live"]["bit_equal"] and s["captures"] == 0
+               for s in result["swaps"])
+    assert result["broken"]["status"] == "holdback" and result["broken"]["events"] == 1
+    assert "drift_detected" in result["drift"]["events"] and result["drift"]["drift_cycles"]
+    assert result["capacity"]["probe"]["capacity_source"] == "probe"
+    assert result["capacity"]["traffic"]["capacity_source"] == "traffic"
+    assert result["capacity"]["probe_failures"] == 0
+    assert result["xla"]["totals"]["unexpected"] == 0
+    assert stand_in.launches >= result["launches"] > 0

@@ -643,8 +643,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     """In a fresh interpreter (tests/conftest.py has already imported jax in
     this one): the port, its detector and warm set, its ops, its featurizer
     and framing, its service host (settings, config, engine, sockets,
-    metrics, health, the capture ledger, admin plane, CLI), chip_smoke.py and
-    bench_torch.py load without any of the forbidden modules."""
+    metrics, health, the capture ledger, admin plane, CLI), its model
+    lifecycle (rollout, drift, capacity), chip_smoke.py and bench_torch.py
+    load without any of the forbidden modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import detectmateservice_tpu_torch\n"
@@ -673,6 +674,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.web.server\n"
         "import detectmateservice_tpu_torch.core\n"
         "import detectmateservice_tpu_torch.cli\n"
+        "import detectmateservice_tpu_torch.rollout\n"
+        "import detectmateservice_tpu_torch.obs\n"
         "import chip_smoke\n"
         "import bench_torch\n"
         "print(' '.join(sorted(sys.modules)))\n")
@@ -691,6 +694,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "detectmateservice_tpu_torch.cli" in loaded
     assert "detectmateservice_tpu_torch.engine.device_obs" in loaded
     assert "detectmateservice_tpu_torch.library.detectors.graphs" in loaded
+    assert "detectmateservice_tpu_torch.rollout.manager" in loaded
+    assert "detectmateservice_tpu_torch.obs.drift" in loaded
+    assert "detectmateservice_tpu_torch.obs.capacity" in loaded
     assert "bench_torch" in loaded
 
 

@@ -30,6 +30,17 @@ YAML = {
     "watchdog_unhealthy_seconds": 4.0, "watchdog_recovery_intervals": 3,
     "watchdog_ingest_stall_seconds": 1.5, "event_ring_size": 64,
     "recompile_alert_enabled": False,
+    "rollout_enabled": True, "rollout_dir": "/tmp/dm-store", "rollout_interval_s": 30,
+    "rollout_sample_ratio": 0.5, "rollout_sample_capacity": 512, "rollout_min_fit_rows": 32,
+    "rollout_train_epochs": 2, "rollout_min_shadow_samples": 64,
+    "rollout_shadow_timeout_s": 60, "rollout_max_mean_delta": 0.5,
+    "rollout_max_flip_ratio": 0.05, "rollout_auto_promote": False,
+    "rollout_keep_checkpoints": 8, "drift_enabled": True, "drift_interval_s": 0.5,
+    "drift_baseline_size": 256, "drift_min_rows": 16, "drift_ks_threshold": 0.3,
+    "drift_psi_threshold": 0.4, "drift_feature_psi_threshold": 0.5,
+    "drift_trigger_intervals": 2, "drift_clear_intervals": 3,
+    "drift_min_cycle_interval_s": 0, "capacity_enabled": True, "capacity_interval_s": 0.5,
+    "capacity_probe_rows": 128, "capacity_probe_idle_s": 1, "capacity_window_s": 10,
     # unported subsystems at their defaults are accepted
     "engine_trace": False, "router_replicas": [], "shed_enabled": False,
 }
