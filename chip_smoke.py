@@ -124,6 +124,26 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    messages of another template mix: ``drift_detected``, a drift-started
    cycle in ``/admin/model?history=1``, ``model_drift_score`` over its
    threshold in ``/admin/drift``; no failed capacity probe;
+15. the observability plane (phase ``trace``): a ``relay`` stage (core) and
+   a ``sink`` stage (core, the telemetry collector) as port CLI processes
+   around the scorer example's detector in this process, all three with
+   ``engine_trace`` (the detector with ``trace_terminal``, relay and
+   detector exporting spans); 32,768 single messages from a sender
+   process, a 1 s ``POST /admin/profile`` on the detector during the
+   stream (a second request answers 409), 64 lone messages, two more
+   captures (pruned to ``profile_max_captures`` = 2). Every line read,
+   alerts once each, recall >= 0.9, no unexpected capture, the largest
+   release wait outside the capture within 12 ms; ``/admin/trace``
+   completed = frames the relay sent, hops relay → detector in time order;
+   the ``pipeline_*`` counts one per frame; ``/admin/slo`` windows filled
+   and both stages in the dwell attribution; two-hop traces in
+   ``/admin/traces`` and an e2e exemplar naming one; the capture's zip
+   holds CUDA kernel events, ``lse_wgmma_kernel`` at least once per replay
+   in its window. Printed: socket lines/s, lone and e2e p50/p99, trace
+   events and bytes, the device's busy share and 3 longest idle gaps over
+   the window, kernel 1's time in the trace beside its CUDA-event time;
+16. last, a 1 s capture over phase 7b's ``process_frames`` loop on a fresh
+   detector of its configuration, with its busy share (``frames_profile``);
 
 The LogBERT check (in phase 8, before its detector is freed):
 ``rollout_fine_tune`` on 256 sampled rows (8 steps through the flash
@@ -193,7 +213,7 @@ from detectmateservice_tpu_torch.models.mlp import MLPScorer
 from detectmateservice_tpu_torch.ops import cuda_build, flash, scorehead
 from detectmateservice_tpu_torch.schemas import DetectorSchema, ParserSchema
 from detectmateservice_tpu_torch.settings import ServiceSettings
-from detectmateservice_tpu_torch.utils import matchkern
+from detectmateservice_tpu_torch.utils import matchkern, profiling
 
 # published dense peaks of one H100 SXM (operations/s) and its HBM rate
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
@@ -270,6 +290,16 @@ LIFECYCLE_CYCLE_AT = 1024
 LIFECYCLE_SHIFTED = 65536
 # the LogBERT check: 256 sampled rows, 8 train steps of 32
 LOGBERT_LIFECYCLE_ROWS = 256
+
+# phase 15 (trace): half the coalesce stream through a traced three-stage
+# pipeline, a 1 s profiler capture during it (and one over phase 7b), three
+# captures against a bound of 2
+TRACE_DETECT = 32768
+TRACE_LONE = 64
+TRACE_PROFILE_S = 1.0
+TRACE_PRUNE_S = 0.2
+TRACE_MAX_CAPTURES = 2
+TRACE_RELAY_BATCH = 64
 
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
@@ -2933,6 +2963,514 @@ def logbert_lifecycle(det, msgs) -> dict:
     return result
 
 
+# -- phase 15 ----------------------------------------------------------------
+def device_busy(events: list) -> dict:
+    """The device's busy and idle share over a profiler window: the window
+    is the trace's session span (its ``Trace`` event), busy the union of
+    its kernel intervals (and, apart, with memory copies and sets); the 3
+    longest idle gaps with their offsets into the window."""
+    spans = [e for e in events if e.get("cat") == "Trace" and e.get("ph") == "X"]
+    if spans:
+        w0, w1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    else:
+        stamps = [e["ts"] for e in events if "ts" in e and e.get("ph") == "X"]
+        w0, w1 = min(stamps), max(stamps)
+
+    def union(kinds):
+        spans = sorted((max(w0, e["ts"]), min(w1, e["ts"] + e["dur"])) for e in events
+                       if e.get("cat") in kinds and e.get("ph") == "X")
+        merged = []
+        for a, b in spans:
+            if b <= a:
+                continue
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    kernels = union(("kernel",))
+    edges = [w0, *[t for span in kernels for t in span], w1]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)
+                   if edges[i + 1] > edges[i]), reverse=True)[:3]
+    busy = sum(b - a for a, b in kernels)
+    copies = union(("kernel", "gpu_memcpy", "gpu_memset"))
+    window = max(w1 - w0, 1e-9)
+    return {"window_ms": window / 1e3, "kernel_events": sum(
+                1 for e in events if e.get("cat") == "kernel"),
+            "busy_ms": busy / 1e3, "busy_share": busy / window,
+            "busy_share_with_copies": sum(b - a for a, b in copies) / window,
+            "idle_share": 1.0 - busy / window,
+            "idle_gaps": [{"ms": g / 1e3, "at_ms": (t - w0) / 1e3} for g, t in gaps]}
+
+
+def kernel_in_trace(events: list, name: str) -> dict:
+    """Count and mean duration (ms) of the device events whose name holds
+    ``name``, also by launch grid."""
+    found = [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+    by_grid: dict = {}
+    for e in found:
+        key = str((e.get("args") or {}).get("grid"))
+        n, total = by_grid.get(key, (0, 0.0))
+        by_grid[key] = (n + 1, total + e["dur"])
+    return {"count": len(found),
+            "mean_ms": (sum(e["dur"] for e in found) / len(found) / 1e3) if found else None,
+            "by_grid": {k: {"count": n, "mean_ms": total / n / 1e3}
+                        for k, (n, total) in by_grid.items()}}
+
+
+def capture_events(last: dict) -> list:
+    return json.loads((Path(last["dir"]) / profiling.TRACE_FILE).read_text())["traceEvents"]
+
+
+def phase_frames_profile(smi: str, device: str = "cuda") -> dict:
+    """A 1 s capture over phase 7b's path, taken last: a fresh detector of
+    phase 7b's configuration through ``bench_torch.drive`` (fit, warm-up,
+    the timed loop), then ``profile_frames``. Last, because a finished
+    capture may leave a cost in the process (§7 of PERF.md): the phases
+    with a release-wait bound run before it, and phase ``trace``'s own
+    capture is the process's first."""
+    det = bench_torch.build_detector("cuda:0" if device == "cuda" else device, SCORER_CONFIG)
+    det.setup_io()
+    msgs, _ = make_messages(N_DETECT, anomaly_rate=0.01, seed=1)
+    tmp = Path(tempfile.mkdtemp(prefix="dmprof", dir="/tmp"))
+    try:
+        with uncounted(det):
+            bench_torch.drive(det, N_DETECT)
+        result = dict(card=smi, **profile_frames(det, msgs, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("frames_profile", **result)
+    return result
+
+
+def profile_frames(det, msgs, base_dir: Path) -> dict:
+    """A 1 s ``ProfileManager`` capture (the API, no HTTP) over the
+    wire-frame path of phase 7b: ``process_frames`` over the same frames in
+    calls of 32, again and again while the capture runs, outside the
+    path's launch counts. Its device busy share and idle gaps."""
+    frames = [pack_batch(msgs[i:i + bench_torch.FRAME_N])
+              for i in range(0, len(msgs), bench_torch.FRAME_N)]
+    per_call = max(1, det.config.max_batch // bench_torch.FRAME_N)
+    if not profiling.PROFILER.wait(60):
+        raise AssertionError("a profiler capture is still running")
+    n_msgs = 0
+    with uncounted(det):
+        profiling.PROFILER.start(str(base_dir), TRACE_PROFILE_S, 2, device=det.device)
+        t0 = time.perf_counter()
+        while profiling.PROFILER.status()["running"]:
+            for start in range(0, len(frames), per_call):
+                n_msgs += det.process_frames(frames[start:start + per_call])[1]
+            det.flush()
+        elapsed = time.perf_counter() - t0
+        profiling.PROFILER.wait(60)
+    last = profiling.PROFILER.status()["last"]
+    if last["state"] != "done":
+        raise AssertionError(f"the 7b capture failed: {last}")
+    events = capture_events(last)
+    result = {"capture": {k: last.get(k) for k in ("activities", "all_threads", "trace_bytes",
+                                                   "transitions_monotonic", "export_s")},
+              "lines_per_s": n_msgs / elapsed, "events": len(events),
+              "lse_wgmma": kernel_in_trace(events, "lse_wgmma_kernel")}
+    if det.device.type == "cuda":
+        result["device"] = device_busy(events)
+    return result
+
+
+def _http_bytes(method: str, port: int, path: str, timeout: float = 60.0) -> tuple:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=b"{}" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _histogram(text: str, name: str, component_id: str) -> dict:
+    """Buckets (upper bound → cumulative count) and count of one histogram
+    series in a Prometheus exposition."""
+    buckets, count = {}, 0.0
+    for labels, value in metric_samples(text, name + "_bucket", component_id).items():
+        le = labels.split('le="')[1].split('"')[0]
+        buckets[float("inf") if le == "+Inf" else float(le)] = value
+    for value in metric_samples(text, name + "_count", component_id).values():
+        count += value
+    return {"buckets": dict(sorted(buckets.items())), "count": count}
+
+
+def histogram_quantile(hist: dict, q: float) -> float:
+    """The ``q`` quantile of a cumulative histogram, linear inside its
+    bucket (as Prometheus's ``histogram_quantile``)."""
+    total = hist["count"]
+    if not total:
+        return float("nan")
+    rank, lower, below = q * total, 0.0, 0.0
+    for upper, cumulative in hist["buckets"].items():
+        if cumulative >= rank:
+            if upper == float("inf"):
+                return lower
+            return lower + (upper - lower) * (rank - below) / max(cumulative - below, 1e-12)
+        lower, below = upper, cumulative
+    return lower
+
+
+def trace_settings(tmp: Path, device: str) -> tuple:
+    """The pipeline's three settings: ``relay`` (core, micro-batching, the
+    origin of every trace) → ``detector`` (``coalesce_files``: the scorer
+    example, with ``trace_terminal``) → ``sink`` (core, ``trace_terminal``,
+    hosting the telemetry collector, which keeps every assembled trace: a
+    ratio of 1 instead of 0.05, so that the exemplar check finds its trace)
+    → this script's alert socket. All three trace; relay and detector
+    export spans. Relay and sink run as CLI processes of their own (their
+    settings are returned as mappings), each stage in its own interpreter as
+    a deployment runs them, and flow-control their outputs (``block``) so a
+    slower downstream throttles its upstream instead of losing frames."""
+    telemetry = f"ipc://{tmp}/telemetry.ipc"
+    detector = ServiceSettings.from_yaml(str(coalesce_files(tmp, device, settings_changes=dict(
+        engine_trace=True, trace_terminal=True, trace_stage="detector",
+        telemetry_addr=telemetry, profile_dir=str(tmp / "profiles"),
+        profile_max_captures=TRACE_MAX_CAPTURES))))
+    common = dict(component_type="core", log_to_file=False, log_level="WARNING",
+                  engine_trace=True, engine_buffer_size=4096, out_backpressure="block")
+    relay = dict(common, component_name="relay", trace_stage="relay",
+                 engine_addr=f"ipc://{tmp}/relay.ipc", out_addr=[detector.engine_addr],
+                 telemetry_addr=telemetry, engine_batch_size=TRACE_RELAY_BATCH)
+    sink = dict(common, component_name="sink", trace_stage="sink", trace_terminal=True,
+                engine_addr=detector.out_addr[0], out_addr=[f"ipc://{tmp}/alerts.ipc"],
+                telemetry_collector=True, telemetry_collector_addr=telemetry,
+                telemetry_sample_healthy_ratio=1.0)
+    return relay, detector, sink
+
+
+class _CliStage:
+    """A port Service run by the CLI in a process of its own, on a free
+    HTTP port."""
+
+    def __init__(self, tmp: Path, name: str, settings: dict):
+        import yaml
+
+        self.name, self.port = name, _free_port()
+        path = tmp / f"{name}_settings.yaml"
+        path.write_text(yaml.safe_dump(dict(settings, http_port=self.port)))
+        self.settings = ServiceSettings.from_yaml(str(path))
+        self.err = tmp / f"{name}.err"
+        with open(tmp / f"{name}.out", "wb") as out, open(self.err, "wb") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "detectmateservice_tpu_torch.cli", "--settings",
+                 str(path)], stdout=out, stderr=err,
+                env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+
+    def running(self) -> bool:
+        if self.proc.poll() is not None:
+            raise AssertionError(f"{self.name}: {self.err.read_text()[-2000:]}")
+        try:
+            return _http("GET", self.port, "/admin/status", 2)[1]["status"]["running"]
+        except OSError:
+            return False
+
+    def stop(self) -> int:
+        try:
+            if self.proc.poll() is None:
+                _http_any("POST", self.port, "/admin/shutdown")
+            return self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(10)
+
+
+def phase_trace(smi: str, lse_ms=None, device: str = "cuda") -> dict:
+    """The observability plane on the card: a traced three-stage pipeline
+    of port Services (the detector in this process, relay and sink as CLI
+    processes), the flight recorder, the pipeline series, the SLO trackers,
+    the telemetry collector and a profiler capture of the detector's
+    process during the stream. ``lse_ms`` is kernel 1's CUDA-event time at
+    N 1,024 (phase 4), printed beside its time in the capture."""
+    tmp = Path(tempfile.mkdtemp(prefix="dmtr", dir="/tmp"))
+    try:
+        return trace_pipeline(tmp, smi, lse_ms, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trace_pipeline(tmp: Path, smi: str, lse_ms, device: str) -> dict:
+    relay_s, det_s, sink_s = trace_settings(tmp, device)
+    fit_msgs, _ = make_messages(512, anomaly_rate=0.0)
+    detect_msgs, anomalies = make_messages(TRACE_DETECT, anomaly_rate=0.01, seed=1)
+    lone = _lone_anomalies(TRACE_LONE, "lone")
+    factory = ZmqPairSocketFactory()
+    alerts = factory.create(sink_s["out_addr"][0])
+    stages = [_CliStage(tmp, "sink", sink_s)]
+    try:
+        detector = Service(det_s)
+        t0 = time.perf_counter()
+        detector.setup_io()
+        setup_s = time.perf_counter() - t0
+        stages.append(_CliStage(tmp, "relay", relay_s))
+        return _trace_stream(tmp, smi, lse_ms, device, detector, setup_s, stages, alerts,
+                             factory, fit_msgs, detect_msgs, anomalies, lone)
+    finally:
+        codes = [stage.stop() for stage in stages]
+        alerts.close()
+        if any(codes):
+            raise AssertionError(f"a CLI stage exited with {codes}")
+
+
+def _trace_stream(tmp, smi, lse_ms, device, detector, setup_s, stages, alerts, factory,
+                  fit_msgs, detect_msgs, anomalies, lone) -> dict:
+    sink, relay = stages
+    det_s = detector.settings
+    det = detector.library_component
+    # every coalesced release's wait and every warm-set replay, on the
+    # host's monotonic clock
+    waits, replays = [], []
+    release, run = det._release_coalesced, det._warm.run
+
+    def recording(n, reason, now):
+        waits.append((now, reason, det._coalescer.oldest_age(now)))
+        return release(n, reason, now)
+
+    def replaying(kind, host_tokens):
+        replays.append(time.monotonic())
+        return run(kind, host_tokens)
+
+    det._release_coalesced, det._warm.run = recording, replaying
+    runner = threading.Thread(target=detector.run, name="ServiceRun", daemon=True)
+    runner.start()
+    _wait(lambda: detector.engine.running and detector.web_server.port, 30, "the detector")
+    for stage in stages:
+        _wait(stage.running, 300, f"the {stage.name} stage", interval=0.2)
+    port = detector.web_server.port
+    loop_tid = detector.engine._thread.native_id
+    collector = _Collector(alerts)
+    collector.start()
+    upstream = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.send_stream("
+         f"{relay.settings.engine_addr!r}, {len(fit_msgs)}, {TRACE_DETECT})"],
+        cwd=Path(__file__).resolve().parent, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+    try:
+        if upstream.stdout.readline().strip() != "ready":
+            raise AssertionError("the sender process did not start")
+        # the SLO tracker's first observation: its windows difference
+        # against it
+        _http("GET", port, "/admin/slo")
+        # the main path: launch counts 0 just before, read just after
+        reset_launches()
+        replays0 = replayed(det)
+        upstream.stdin.write("fit\n")
+        upstream.stdin.flush()
+        upstream.stdout.readline()
+        _wait(lambda: det._fitted and det._fit_thread is None and det.pending_count() == 0,
+              300, "the fit at the boundary")
+        n_waits_fit = len(waits)
+        upstream.stdin.write("detect\n")
+        upstream.stdin.flush()
+        time.sleep(0.05)
+        # a capture of the detector's process while the stream flows, and a
+        # second request while it runs
+        started = _http_any("POST", port, f"/admin/profile?seconds={TRACE_PROFILE_S}")
+        busy = _http_any("POST", port, f"/admin/profile?seconds={TRACE_PROFILE_S}")
+        sent = json.loads(upstream.stdout.readline())
+        if not profiling.PROFILER.wait(120):
+            raise AssertionError("the profiler capture did not end")
+        _settle(det, detector.engine, collector)
+        upstream.stdin.write("close\n")
+        upstream.stdin.flush()
+        upstream.wait(30)
+    finally:
+        if upstream.poll() is None:
+            upstream.kill()
+            upstream.wait(10)
+    t_last = collector.times[-1] if collector.times else float("nan")
+    collector.stop_flag.set()
+    collector.join(5)
+    sender = factory.create_output(relay.settings.engine_addr, buffer_size=1000)
+    latencies = _lone_latencies(sender, alerts, lone)
+    counts = read_launches()
+    variants = read_variants()["candidate_lse"]
+    graph = replay_delta(det, replays0)
+    last = profiling.PROFILER.status()["last"]
+    code, archive = _http_bytes("GET", port, "/admin/profile/latest")
+    # pruning: two more captures leave the newest two
+    for _ in range(2):
+        _http("POST", port, f"/admin/profile?seconds={TRACE_PRUNE_S}")
+        profiling.PROFILER.wait(60)
+    kept = sorted(p.name for p in (tmp / "profiles").iterdir())
+
+    n_relay = len(fit_msgs) + TRACE_DETECT + TRACE_LONE
+    lines_sent = sum(map(count_lines, fit_msgs + detect_msgs + lone))
+    _wait(lambda: _http("GET", sink.port, "/admin/traces?limit=0")[1]["stats"]["backlog"] == 0,
+          30, "the collector to assemble every trace", interval=0.2)
+    # each stage's series, from its own process
+    texts = {"relay": _http("GET", relay.port, "/metrics")[1],
+             "detector": _http("GET", port, "/metrics")[1],
+             "sink": _http("GET", sink.port, "/metrics")[1]}
+    cids = {"relay": relay.settings.component_id, "detector": det_s.component_id,
+            "sink": sink.settings.component_id}
+    pipeline = {name: {stage: _histogram(texts[stage], f"pipeline_{name}", cids[stage])["count"]
+                       for stage in texts}
+                for name in ("stage_dwell_seconds", "transit_seconds", "e2e_latency_seconds")}
+    e2e = _histogram(texts["detector"], "pipeline_e2e_latency_seconds", det_s.component_id)
+    read_lines = {stage: metric_value(texts[stage], "data_read_lines_total", cids[stage])
+                  for stage in ("relay", "detector")}
+    recorder = _http("GET", port, "/admin/trace")[1]
+    # each process's SLO tracker reads its own stages' series
+    slo = _http("GET", port, "/admin/slo")[1]
+    relay_slo = _http("GET", relay.port, "/admin/slo")[1]
+    xla = _http("GET", port, "/admin/xla")[1]
+    traces = _http("GET", sink.port, "/admin/traces?limit=4096")[1]
+    two_hop = [t for t in traces["traces"] if t["stages"] == 2 and t["complete"]]
+    one = (_http("GET", sink.port, f"/admin/traces?id={two_hop[-1]['trace_id']}")[1]
+           if two_hop else None)
+    openmetrics = _http("GET", port, "/metrics?format=openmetrics")[1]
+    exemplars = [line.split('trace_id="')[1].split('"')[0] for line in openmetrics.splitlines()
+                 if line.startswith("pipeline_e2e_latency_seconds_bucket{")
+                 and f'component_id="{det_s.component_id}"' in line and "trace_id=" in line]
+    detector.shutdown()
+    runner.join(60)
+    sender.close()
+
+    ids = [DetectorSchema.from_bytes(a)["logIDs"][0] for a in _messages_of(collector.frames)]
+    by_id = set(ids)
+    recall = len(anomalies & by_id) / max(1, len(anomalies))
+    # the bound is the coalescer's promise with tracing on: it holds on the
+    # releases whose wait meets no part of the profiler's capture (its start
+    # and stop synchronize the device and hold the warm set's lock; inside
+    # the window every thread's ops are recorded), and the waits that meet
+    # the capture are reported apart
+    spans = list((last.get("transitions_monotonic") or {}).values())
+    capture = [(spans[0][0], spans[-1][1])] if spans else []
+
+    def meets(w, windows):
+        return any(a <= w[0] and w[0] - w[2] <= b for a, b in windows)
+
+    stream = waits[n_waits_fit:]
+    inside = [w for w in stream if meets(w, capture)]
+    outside = [w for w in stream if not meets(w, capture)]
+    tick_ms = det.drain_poll_ms
+    wait_bound_s = (det.config.batch_deadline_ms + tick_ms + 2.0) / 1e3
+
+    import io
+    import zipfile
+
+    names = zipfile.ZipFile(io.BytesIO(archive)).namelist() if code == 200 else []
+    events = (json.loads(zipfile.ZipFile(io.BytesIO(archive)).read(profiling.TRACE_FILE))
+              ["traceEvents"] if profiling.TRACE_FILE in names else [])
+    window = [spans[0][1], spans[1][0]] if len(spans) == 2 else [0.0, 0.0]
+    margin = 0.02
+    replays_in_window = sum(1 for t in replays if window[0] + margin <= t <= window[1] - margin)
+    lse = kernel_in_trace(events, "lse_wgmma_kernel")
+    result = dict(
+        card=smi, setup_s=setup_s, n_detect=TRACE_DETECT, relay_frames=n_relay,
+        lines_sent=lines_sent,
+        socket_lines_per_s=TRACE_DETECT / (t_last - sent["t_first"]),
+        sender_lines_per_s=TRACE_DETECT / (sent["t_sent"] - sent["t_first"]),
+        lone_p50_ms=float(np.percentile(latencies, 50) * 1e3),
+        lone_p99_ms=float(np.percentile(latencies, 99) * 1e3),
+        e2e_p50_ms=histogram_quantile(e2e, 0.5) * 1e3,
+        e2e_p99_ms=histogram_quantile(e2e, 0.99) * 1e3, e2e_count=e2e["count"],
+        release_wait_ms={"outside_max": max((w[2] for w in outside), default=0.0) * 1e3,
+                         "inside_max": max((w[2] for w in inside), default=0.0) * 1e3,
+                         "transitions_max": max((w[2] for w in inside if meets(w, spans)),
+                                                default=0.0) * 1e3,
+                         "outside_releases": len(outside), "inside_releases": len(inside),
+                         "bound": wait_bound_s * 1e3,
+                         "slowest_outside": [
+                             {"reason": w[1], "wait_ms": w[2] * 1e3,
+                              "after_capture_s": (w[0] - capture[0][1]) if capture else None}
+                             for w in sorted(outside, key=lambda w: w[2])[-5:]]},
+        pipeline_counts=pipeline, read_lines=read_lines,
+        recorder={"tracing_enabled": recorder.get("tracing_enabled"),
+                  "completed": recorder.get("completed"),
+                  "hops": [list(h) for h in sorted({tuple(h["stage"] for h in t["hops"])
+                                                    for t in recorder["slowest"]
+                                                    + recorder["sampled"]})]},
+        slo={"burn": slo["burn"], "dwell_share": slo["stages"]["dwell_share"],
+             "relay_dwell_share": relay_slo["stages"]["dwell_share"]},
+        collector={"stats": traces["stats"], "two_hop": len(two_hop),
+                   "trace": one, "exemplars": exemplars},
+        profile={"post": started[0], "second_post": busy[0], "latest": code,
+                 "zip": names, "kept": kept,
+                 "capture": {k: last.get(k) for k in (
+                     "state", "activities", "all_threads", "trace_bytes",
+                     "transitions_monotonic", "export_s")},
+                 "events": len(events),
+                 "event_counts": dict(Counter(e.get("cat") for e in events)),
+                 "lse_wgmma": lse, "lse_combine": kernel_in_trace(events, "lse_combine_kernel"),
+                 "lse_cuda_event_ms": lse_ms, "replays_in_window": replays_in_window,
+                 # CPU ops the engine loop ran inside a capture another
+                 # thread started
+                 "engine_loop_cpu_ops": sum(1 for e in events if e.get("cat") == "cpu_op"
+                                            and e.get("tid") == loop_tid)},
+        alerts=len(ids), unique_alerts=len(by_id), anomalies=len(anomalies), recall=recall,
+        launches=counts["candidate_lse"], launch_counts=counts, variants=variants,
+        replayed_launches=graph, xla_totals=xla["totals"])
+    if device == "cuda":
+        result["profile"]["device"] = device_busy(events)
+    emit("trace", **result)
+
+    failures = []
+    if device == "cuda" and result["release_wait_ms"]["outside_max"] > wait_bound_s * 1e3:
+        failures.append(f"a release waited {result['release_wait_ms']['outside_max']:.3f} ms")
+    if read_lines != {"relay": lines_sent, "detector": lines_sent}:
+        failures.append(f"read {read_lines} lines of {lines_sent} sent")
+    if len(by_id) != len(ids):
+        failures.append("an alert was received twice")
+    if recall < 0.9:
+        failures.append(f"recall {recall}")
+    if xla["totals"]["unexpected"]:
+        failures.append(f"unexpected captures: {xla['totals']}")
+    if not recorder.get("tracing_enabled") or recorder.get("completed") != n_relay \
+            or result["recorder"]["hops"] != [["relay", "detector"]]:
+        failures.append(f"flight recorder: {result['recorder']}")
+    for trace in recorder["slowest"] + recorder["sampled"]:
+        stamps = [t for h in trace["hops"] for t in (h["recv_ns"], h["send_ns"])]
+        if stamps != sorted(stamps):
+            failures.append(f"hops out of time order: {trace}")
+            break
+    want = {"stage_dwell_seconds": {"relay": n_relay, "detector": n_relay},
+            "transit_seconds": {"relay": 0, "detector": n_relay},
+            "e2e_latency_seconds": {"relay": 0, "detector": n_relay}}
+    for name, stages in want.items():
+        if {s: pipeline[name][s] for s in stages} != stages:
+            failures.append(f"pipeline_{name}: {pipeline[name]}, want {stages}")
+    if any(w["error_ratio"] is None for w in slo["burn"].values()) or \
+            TORCH_SCORER not in slo["stages"]["dwell_share"] or \
+            "core" not in relay_slo["stages"]["dwell_share"]:
+        failures.append(f"/admin/slo: {result['slo']}")
+    if not two_hop or one is None or [h["stage"] for h in one["hops"]] != ["relay", "detector"]:
+        failures.append(f"the collector holds no two-hop trace: {traces['stats']}")
+    retained = {t["trace_id"] for t in traces["traces"]}
+    if not set(exemplars) & retained:
+        failures.append(f"no e2e exemplar names a retained trace: {exemplars}")
+    if started[0] != 200 or busy[0] != 409 or code != 200 or "capture.json" not in names:
+        failures.append(f"profile routes: {result['profile']}")
+    if kept != ["capture-0002", "capture-0003"]:
+        failures.append(f"pruning kept {kept}")
+    if device == "cuda":
+        if not result["profile"]["device"]["kernel_events"]:
+            failures.append("the capture holds no CUDA kernel event")
+        if lse["count"] < replays_in_window or not replays_in_window:
+            failures.append(f"{lse['count']} lse_wgmma_kernel events for "
+                            f"{replays_in_window} replays in the window")
+    if counts["candidate_lse"] < 1 or counts["flash_forward"] or counts["flash_dq"] \
+            or counts["flash_dkv"]:
+        failures.append(f"launches {counts}")
+    if device == "cuda":
+        try:
+            check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"], "trace")
+            check_replays(graph, {"candidate_lse": counts["candidate_lse"]}, "trace")
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if runner.is_alive():
+        failures.append("the detector's service did not shut down")
+    if failures:
+        raise AssertionError(f"the trace phase failed: {failures}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2966,6 +3504,10 @@ def main() -> int:
     coalesce = phase_coalesce(_smi)
     torch.cuda.empty_cache()
     lifecycle = phase_lifecycle(_smi)
+    torch.cuda.empty_cache()
+    trace = phase_trace(_smi, lse_times[(1024, 128)]["ms"])
+    torch.cuda.empty_cache()
+    phase_frames_profile(_smi)
     logbert_lc = logbert["lifecycle"]
     mlp_row = lse_times[(CALL_SIZE, 128)]
     kernels = [{
@@ -2977,7 +3519,8 @@ def main() -> int:
                      + logbert["launch_counts"]["candidate_lse"]
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]
                      + service["launches"] + coalesce["launches"] + lifecycle["launches"]
-                     + int8_lc["launches"] + logbert_lc["launch_counts"]["candidate_lse"]),
+                     + int8_lc["launches"] + logbert_lc["launch_counts"]["candidate_lse"]
+                     + trace["launches"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
@@ -2985,7 +3528,8 @@ def main() -> int:
                              "coalesce": coalesce["launches"],
                              "lifecycle": lifecycle["launches"],
                              "int8w_lifecycle": int8_lc["launches"],
-                             "logbert_lifecycle": logbert_lc["launch_counts"]["candidate_lse"]},
+                             "logbert_lifecycle": logbert_lc["launch_counts"]["candidate_lse"],
+                             "trace": trace["launches"]},
         # every launch of the serving paths ran as part of a CUDA-graph
         # replay; on the lifecycle paths the candidate's shadow chunks run
         # op by op
@@ -2999,7 +3543,8 @@ def main() -> int:
                              "lifecycle": lifecycle["replayed_launches"]["candidate_lse"],
                              "int8w_lifecycle": int8_lc["replayed_launches"]["candidate_lse"],
                              "logbert_lifecycle":
-                                 logbert_lc["replayed_launches"]["candidate_lse"]},
+                                 logbert_lc["replayed_launches"]["candidate_lse"],
+                             "trace": trace["replayed_launches"]["candidate_lse"]},
         "max_abs_err": lse_err,
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
@@ -3017,7 +3562,8 @@ def main() -> int:
                                 "coalesce": coalesce["variants"],
                                 "lifecycle": lifecycle["variants"],
                                 "int8w_lifecycle": int8_lc["variants"],
-                                "logbert_lifecycle": logbert_lc["variants"]["candidate_lse"]},
+                                "logbert_lifecycle": logbert_lc["variants"]["candidate_lse"],
+                                "trace": trace["variants"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],

@@ -37,8 +37,16 @@ threads reach the device through the detector's seams (``graphs.py`` says
 how they serialize with the dispatch path). At teardown drift and capacity
 stop first, then the manager, and only then the engine and the component.
 
-The JAX Service's telemetry, shed, fault plans, profiling, compile cache
-and coordinator are not ported (their settings raise in ``settings.py``).
+Observability: with ``engine_trace`` the engine stamps hops and feeds its
+flight recorder, which the health plane's events carry
+(``HealthMonitor.trace_recorder``); with ``telemetry_collector`` the Service
+builds a ``TelemetryCollector`` on its socket factory, starts it after the
+lifecycle monitors (so it listens before any engine starts) and stops it
+after the engine, so the exporters' final flushes still land. Profiler
+captures (``utils/profiling.py``, ``/admin/profile``) are per process.
+
+The JAX Service's shed, fault plans, compile cache and coordinator are not
+ported (their settings raise in ``settings.py``).
 """
 from __future__ import annotations
 
@@ -62,7 +70,7 @@ from .engine.health import (
     remove_excepthook_sink,
     set_build_info,
 )
-from .engine.socket import EngineSocketFactory
+from .engine.socket import EngineSocketFactory, make_socket_factory
 from .library.common.core import CoreComponent, CoreConfig
 from .settings import ServiceSettings
 from .web.server import WebServer
@@ -172,7 +180,8 @@ class Service:
 
         self.events = EventLog(maxlen=settings.event_ring_size)
         self.health = HealthMonitor(
-            dict(self._labels), stage=settings.component_name or settings.component_type,
+            dict(self._labels),
+            stage=settings.trace_stage or settings.component_name or settings.component_type,
             stall_seconds=settings.watchdog_stall_seconds,
             unhealthy_seconds=settings.watchdog_unhealthy_seconds,
             interval_s=settings.watchdog_interval_s,
@@ -223,6 +232,7 @@ class Service:
         self.processor = LibraryComponentProcessor(self.library_component, self._labels)
         self.engine = Engine(settings, self.processor, socket_factory, self.logger,
                              health=self.health)
+        self.health.trace_recorder = self.engine.trace_recorder
         # the process-wide capture ledger takes this service's identity,
         # health plane and metric factories: an unexpected recompile lands in
         # the event ring, the xla_recompile_storm check and the scorer_xla_*
@@ -234,6 +244,18 @@ class Service:
         if settings.watchdog_enabled:
             self.health.start()
         self._start_lifecycle()
+        self.telemetry = None
+        if settings.telemetry_collector:
+            from .telemetry import TelemetryCollector
+
+            factory = socket_factory or make_socket_factory(settings.transport_backend,
+                                                            self.logger)
+            self.telemetry = TelemetryCollector(settings, factory, labels=dict(self._labels),
+                                                monitor=self.health, logger=self.logger)
+            self.telemetry.start()
+            self.logger.info("telemetry collector listening on %s (healthy sample ratio "
+                             "%.3f, SLO %.0f ms)", settings.telemetry_collector_addr,
+                             settings.telemetry_sample_healthy_ratio, settings.telemetry_slo_ms)
 
         self._running_metric = m.ENGINE_RUNNING().labels(**self._labels)
         self._starts_metric = m.ENGINE_STARTS().labels(**self._labels)
@@ -380,6 +402,13 @@ class Service:
             self.stop()
         except Exception as exc:  # noqa: BLE001 — teardown goes on
             self.logger.error("engine stop during teardown failed: %s", exc)
+        # after the engine: the exporters' final flushes still land, and the
+        # collector's last pump flushes its own assembly tail
+        if self.telemetry is not None:
+            try:
+                self.telemetry.stop()
+            except Exception as exc:  # noqa: BLE001 — teardown goes on
+                self.logger.error("telemetry collector stop failed: %s", exc)
         # the shutdown checkpoint: after the final flush landed, before the
         # component releases its state
         if (save and self.settings.checkpoint_dir and self.library_component is not None

@@ -10,6 +10,21 @@ The port's copy of ``detectmateservice_tpu/engine/engine.py``:
   shm reference frame counts an error and is dropped), counts it, hands it
   to the processor and fans the results out; ``None`` from the processor
   filters the message;
+* with ``engine_trace`` each frame carries a trace: an untraced frame
+  originates one (``TraceContext.new``), a traced one observes its transit
+  from the upstream stage. The frame's context waits in a FIFO; each
+  forwarded frame takes the oldest, appends this stage's hop and leaves as a
+  v2 frame (``_stamp_trace``), and what did not leave by the end of the
+  burst (filtered messages, deferred outputs, a terminal stage) is closed
+  there (``_finalize_traces``): the pairing is exact when frames map 1:1
+  through the stage and best effort under re-chunking, as in the JAX
+  engine. Dwell is observed for every context; e2e and the flight recorder
+  (``trace_recorder``) where the trace ends (no forwarding outputs, or
+  ``trace_terminal``), or at every egress with ``trace_observe_e2e``. With
+  ``telemetry_addr`` each closed hop is also offered to the span exporter
+  (``telemetry/spans.py``): one deque append per frame. ``FRAME_CONTEXT``
+  carries the frame's trace id and tenant for the log formatter while the
+  burst is in flight;
 * ``engine_batch_size == 1`` processes one message at a time; ``> 1``
   micro-batches what arrived within ``engine_batch_timeout_ms`` into
   ``process_batch``, and a processor with ``process_frames`` takes whole
@@ -34,9 +49,8 @@ The port's copy of ``detectmateservice_tpu/engine/engine.py``:
   returns its result: the admin plane's way to touch the component's
   device state (a checkpoint) without racing the loop.
 
-The JAX engine's trace stamping, spool, router, admission, shm transport,
-telemetry, fault sites and dead-letter queue are not ported; their settings
-raise in ``settings.py``.
+The JAX engine's spool, router, admission, shm transport, fault sites and
+dead-letter queue are not ported; their settings raise in ``settings.py``.
 """
 from __future__ import annotations
 
@@ -54,14 +68,18 @@ from .framing import (
     MAGIC_TEN,
     MAGIC_V2,
     FramingError,
+    Hop,
+    TraceContext,
     frame_msg_count,
     pack_batch,
     unpack_batch,
     unwrap_tenant,
     unwrap_trace,
     wrap_tenant,
+    wrap_trace,
 )
 from .health import Heartbeat
+from .tracing import FRAME_CONTEXT, FlightRecorder
 from .socket import (
     EngineSocket,
     EngineSocketFactory,
@@ -138,6 +156,33 @@ class Engine:
             health.register_engine(self._hb_loop, self._hb_ingest, self._hb_output,
                                    lambda: self._running)
 
+        # pipeline tracing: inbound v2 headers are stripped whether or not
+        # this stage traces; it stamps only with engine_trace, which rides
+        # the frame magic detection (hence the autodetect gate)
+        self._trace_enabled = settings.engine_trace and settings.engine_frame_autodetect
+        self._trace_stage = (settings.trace_stage or settings.component_name
+                             or settings.component_type)
+        self._trace_terminal = settings.trace_terminal
+        self._trace_observe_e2e = settings.trace_observe_e2e
+        # (TraceContext, recv_ns) of the frames of the burst being
+        # dispatched: taken by forwarded frames, closed at burst end
+        self._trace_pending: deque = deque()
+        self.trace_recorder = FlightRecorder(max_slowest=settings.trace_slowest,
+                                             max_sampled=settings.trace_sampled,
+                                             sample_every=settings.trace_sample_every)
+        if self._trace_enabled:
+            self._dwell_obs = m.PIPELINE_STAGE_DWELL().labels(**self._labels).observe
+            self._transit_obs = m.PIPELINE_TRANSIT().labels(**self._labels).observe
+            self._e2e_obs = m.PIPELINE_E2E_LATENCY().labels(**self._labels).observe
+        self._frame_ctx = FRAME_CONTEXT
+        self._telemetry = None
+        if self._trace_enabled and settings.telemetry_addr:
+            from ..telemetry.spans import SpanExporter
+
+            self._telemetry = SpanExporter(
+                settings, self._factory, self._trace_stage, self._labels, self.logger,
+                events=health.emit_event if health is not None else None)
+
         # tenants of the ingress frames of the burst being dispatched, in
         # order: each forwarded frame is stamped with the oldest (exact when
         # frames map 1:1 through the stage, approximate under re-chunking)
@@ -196,6 +241,8 @@ class Engine:
         self._hb_ingest.beat()
         self._hb_output.wait_end()
         self._running = True
+        if self._telemetry is not None:
+            self._telemetry.start()
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(target=self._run_loop, name="EngineLoop",
                                             daemon=True)
@@ -220,6 +267,9 @@ class Engine:
 
     def _close_all(self) -> None:
         self._sockets_closed = True
+        if self._telemetry is not None:
+            # its sender thread drains the queue once more before it joins
+            self._telemetry.stop()
         for sock in [self._pair_sock, *self._out_socks]:
             try:
                 sock.close()
@@ -252,12 +302,15 @@ class Engine:
 
     # -- ingress ----------------------------------------------------------
     def _ingest_trace(self, raw: bytes, err_c) -> Optional[bytes]:
-        """Strip a v2 trace header; the payload is the v1 wire unit. A
-        garbled trace block counts an error and keeps the payload; a block
-        running past the frame end loses the frame."""
+        """Strip a v2 trace header and, when tracing, queue the frame's
+        context; the payload is the v1 wire unit. A garbled trace block
+        counts an error and keeps the payload (this stage then originates a
+        trace); a block running past the frame end loses the frame. One
+        clock read per frame."""
+        ctx = None
         if raw.startswith(MAGIC_V2):
             try:
-                raw, _ctx, damaged = unwrap_trace(raw)
+                raw, ctx, damaged = unwrap_trace(raw)
             except FramingError as exc:
                 err_c.inc()
                 self.logger.error("corrupt traced frame dropped: %s", exc)
@@ -265,7 +318,79 @@ class Engine:
             if damaged:
                 err_c.inc()
                 self.logger.warning("garbled trace block stripped; payload messages kept")
+        if not self._trace_enabled:
+            return raw
+        now = time.time_ns()
+        if ctx is not None:
+            prev = ctx.hops[-1].send_ns if ctx.hops else ctx.ingest_ns
+            self._transit_obs(max(0, now - prev) / 1e9)
+        else:
+            ctx = TraceContext.new(now)
+        self._trace_pending.append((ctx, now))
+        self._frame_ctx.trace_id = ctx.trace_id
         return raw
+
+    def _stamp_trace(self, payload: bytes, now_ns: int) -> bytes:
+        """The oldest pending context's hop completed, ``payload`` wrapped
+        as a v2 frame for the downstream stage. With ``trace_observe_e2e``
+        this egress also observes e2e and feeds the flight recorder (which
+        keeps a copy: hops appended downstream do not change it)."""
+        ctx, recv_ns = self._trace_pending.popleft()
+        ctx.hops.append(Hop(self._trace_stage, recv_ns, now_ns))
+        self._dwell_obs(max(0, now_ns - recv_ns) / 1e9)
+        tel = self._telemetry
+        if self._trace_observe_e2e:
+            self._observe_e2e(ctx, max(0, now_ns - ctx.ingest_ns) / 1e9)
+        if tel is not None:
+            tel.offer(ctx.trace_id, ctx.ingest_ns, recv_ns, now_ns, False,
+                      getattr(self._frame_ctx, "tenant", None))
+        return wrap_trace(payload, ctx)
+
+    def _observe_e2e(self, ctx: TraceContext, e2e: float) -> None:
+        """One completed trace: the e2e histogram (with the trace id as the
+        bucket's exemplar when spans leave for a collector, which holds the
+        assembled trace) and the flight recorder."""
+        if self._telemetry is not None:
+            self._e2e_obs(e2e, {"trace_id": f"{ctx.trace_id:016x}"})
+        else:
+            self._e2e_obs(e2e)
+        self.trace_recorder.record(ctx, e2e)
+
+    def _finalize_traces(self) -> None:
+        """Close the contexts whose frames did not leave as v2 frames
+        (filtered messages, deferred outputs, a terminal stage): dwell for
+        each; e2e and the flight recorder only where the trace ends (no
+        forwarding outputs, or ``trace_terminal``). The pending tenants go
+        too: a later burst's frames must not take a stale one."""
+        self._tenant_pending.clear()
+        fc = self._frame_ctx
+        if not self._trace_pending:
+            fc.trace_id = None
+            fc.tenant = None
+            return
+        now = time.time_ns()
+        terminal = (self._trace_terminal if self._trace_terminal is not None
+                    else not self._out_socks)
+        tel = self._telemetry
+        tenant = getattr(fc, "tenant", None)
+        while self._trace_pending:
+            ctx, recv_ns = self._trace_pending.popleft()
+            ctx.hops.append(Hop(self._trace_stage, recv_ns, now))
+            self._dwell_obs(max(0, now - recv_ns) / 1e9)
+            if terminal:
+                self._observe_e2e(ctx, max(0, now - ctx.ingest_ns) / 1e9)
+            if tel is not None:
+                tel.offer(ctx.trace_id, ctx.ingest_ns, recv_ns, now, terminal, tenant)
+        fc.trace_id = None
+        fc.tenant = None
+
+    def _telemetry_flag(self, flag: str) -> None:
+        """A verdict flag (``error``, ``quarantined``) for the trace being
+        processed: the oldest pending context's, as the failing message's
+        own trace is not known after expansion (best effort, like the
+        tenant pairing)."""
+        if self._telemetry is not None and self._trace_pending:
+            self._telemetry.offer_flag(self._trace_pending[0][0].trace_id, flag)
 
     def _strip_tenant(self, raw: bytes, err_c) -> Tuple[Optional[bytes], Optional[str]]:
         """Strip one tenant block → ``(payload, tenant)``; a garbled id counts
@@ -285,7 +410,8 @@ class Engine:
         """One wire frame at ingress: a shm reference is dropped and counted,
         a tenant block stripped (and queued for the egress re-stamp when the
         stage forwards), the payload bytes counted read, a v2 trace header
-        stripped. None when nothing of the frame survives."""
+        stripped (and the frame's trace queued when tracing). None when
+        nothing of the frame survives."""
         if raw[0] == 0xD7 and raw.startswith(MAGIC_SHM):
             err_c.inc()
             self.logger.error("shm reference frame dropped: the port has no "
@@ -296,12 +422,14 @@ class Engine:
             raw, tenant = self._strip_tenant(raw, err_c)
             if not raw:
                 return None
+        # None clears the previous frame's tenant
+        self._frame_ctx.tenant = tenant
         if self._note_tenant is not None:
             self._note_tenant(tenant)
         if tenant is not None and self._out_socks:
             self._tenant_pending.append(tenant)
         read_b.inc(len(raw))
-        if raw[0] == 0xD7 and raw.startswith(MAGIC_V2):
+        if self._trace_enabled or (raw[0] == 0xD7 and raw.startswith(MAGIC_V2)):
             return self._ingest_trace(raw, err_c) or None
         return raw
 
@@ -446,12 +574,12 @@ class Engine:
                     outs, n_lines = self._dispatch_frames(frames_fn, frames, err_c)
                     read_l.inc(n_lines)
                     self._send_results(outs)
-                    self._tenant_pending.clear()
+                    self._finalize_traces()
                     continue
 
                 msgs = self._expand_frame(raw, read_b, read_l, err_c)
                 if not msgs:
-                    self._tenant_pending.clear()
+                    self._finalize_traces()
                     continue
 
                 if not use_batches:
@@ -459,6 +587,8 @@ class Engine:
                         out = self._dispatch_single(msg_raw, err_c)
                         if out is not None:
                             self._send_results([out])
+                    if self._trace_pending:
+                        self._finalize_traces()
                     continue
 
                 batch = msgs
@@ -474,6 +604,8 @@ class Engine:
                 for start in range(0, len(batch), batch_size):
                     self._send_results(self._dispatch_chunk(
                         batch_fn, batch[start:start + batch_size], err_c))
+                if self._trace_pending:
+                    self._finalize_traces()
         finally:
             with self._calls_lock:
                 self._loop_accepts = False
@@ -486,7 +618,7 @@ class Engine:
                 self._send_results(final_fn())
             except Exception as exc:  # noqa: BLE001 — stop must complete
                 self.logger.error("flush at stop raised: %s", exc)
-        self._tenant_pending.clear()
+        self._finalize_traces()
 
     # -- dispatch with poison isolation -----------------------------------
     def _dispatch_chunk(self, batch_fn, chunk: List[bytes], err_c) -> List:
@@ -496,11 +628,13 @@ class Engine:
             return batch_fn(chunk)
         except Exception as exc:  # noqa: BLE001 — isolated below
             err_c.inc(len(chunk))
+            self._telemetry_flag("error")
             self.logger.error("process_batch() raised: %s — isolating %d messages",
                               exc, len(chunk))
             return self._isolate_poison(batch_fn, chunk, exc)
 
     def _drop_poison(self, what: str, exc: BaseException, attempts: int) -> None:
+        self._telemetry_flag("quarantined")
         self.logger.error("%s dropped after %d failed attempts: %s: %s",
                           what, attempts, type(exc).__name__, exc)
 
@@ -536,6 +670,7 @@ class Engine:
             except Exception as exc:  # noqa: BLE001 — retried, then dropped
                 last = exc
         err_c.inc()
+        self._telemetry_flag("error")
         self._drop_poison("message", last, attempts)
         return None
 
@@ -547,6 +682,7 @@ class Engine:
             return outs, n_lines
         except Exception as exc:  # noqa: BLE001 — isolated below
             err_c.inc(len(frames))
+            self._telemetry_flag("error")
             self.logger.error("process_frames() raised: %s — isolating %d frames",
                               exc, len(frames))
         retries = max(1, self.settings.dlq_max_attempts - 1)
@@ -570,10 +706,16 @@ class Engine:
     # -- fan-out --------------------------------------------------------
     def _send_results(self, outs) -> None:
         """Fan processor results out, ``engine_frame_batch`` of them packed
-        per wire frame; a forwarded frame is stamped, outermost, with the
-        oldest pending ingress tenant."""
+        per wire frame. With tracing, forwarding outputs and no
+        ``trace_terminal``, each frame takes the oldest pending trace and
+        leaves as a v2 frame (one clock read per call); a forwarded frame is
+        then stamped, outermost, with the oldest pending ingress tenant. A
+        reply on the input socket carries no trace: that stage ends it."""
         frame_batch = self.settings.engine_frame_batch
         pending = [o for o in outs if o is not None]
+        attach = bool(self._trace_enabled and self._out_socks and not self._trace_terminal
+                      and self._trace_pending and pending)
+        now_ns = time.time_ns() if attach else 0
         start = 0
         while start < len(pending):
             chunk = pending[start:start + max(1, frame_batch)]
@@ -582,6 +724,11 @@ class Engine:
             else:
                 data = pack_batch(chunk)
                 lines = sum(map(count_lines, chunk))
+            if attach and self._trace_pending:
+                # line and byte metrics count the payload, not the block
+                if lines is None:
+                    lines = count_lines(data)
+                data = self._stamp_trace(data, now_ns)
             if self._tenant_pending:
                 # line and byte metrics count the payload, not the block
                 if lines is None:

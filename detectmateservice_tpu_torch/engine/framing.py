@@ -11,30 +11,41 @@ receiver tells a batch frame from a single message by its first four bytes.
 Any frame without the magic is one message, as the native featurizer's
 count pass reads it (``native/dmfeat.c`` ``dm_count_frame_msgs``).
 
-The engine also unwraps, at ingress, the wrappers of the JAX package's v2
-frame family, which share the 0xD7 lead byte:
+The engine also reads the wrappers of the v2 frame family, which share the
+0xD7 lead byte, as the JAX package's engine does:
 
 * the traced frame ``0xD7 'D' 'M' 0x02 | varint trace_len | trace block |
   payload``, where the payload is a complete v1 wire unit: the engine strips
-  the trace block (``unwrap_trace``) and stamps none;
+  the trace block at ingress (``unwrap_trace``) and, with ``engine_trace``,
+  stamps its hop and forwards a traced frame (``wrap_trace``);
 * the tenant frame ``0xD7 'D' 'M' 0x04 | varint id_len | tenant id utf-8 |
   payload``, the outermost wrapper: stripped at ingress (``unwrap_tenant``)
   and stamped again outermost on forwarded frames (``wrap_tenant``);
 * the shm reference frame ``0xD7 'D' 'M' 0x03 | ...``, recognised by its
   magic only: the port has no shared-memory transport, so the engine counts
-  one as a processing error and drops it.
+  one as a processing error and drops it;
+* the span frame ``0xD7 'D' 'M' 0x05 | varint body_len | span JSON utf-8``,
+  the telemetry channel from a stage's span exporter to the collector
+  (``telemetry/``): never on a data link.
 
 The trace block is ``trace_id (8 bytes) | varint ingest_ns | varint n_hops |
-n_hops × (varint name_len | name utf-8 | varint recv_ns | varint send_ns)``.
+n_hops × (varint name_len | name utf-8 | varint recv_ns | varint send_ns)``,
+the timestamps ``time.time_ns()`` epoch nanoseconds. A garbled block is
+skipped by its declared length and its payload survives; only a length
+running past the frame end loses the frame.
 """
 from __future__ import annotations
 
+import itertools
+import json
+import os
 from typing import List, NamedTuple, Optional, Tuple
 
 MAGIC = b"\xd7DM\x01"
 MAGIC_V2 = b"\xd7DM\x02"
 MAGIC_SHM = b"\xd7DM\x03"
 MAGIC_TEN = b"\xd7DM\x04"
+MAGIC_SPAN = b"\xd7DM\x05"
 
 
 class FramingError(ValueError):
@@ -131,20 +142,56 @@ def unpack_batch(data: bytes) -> Optional[List[bytes]]:
 # -- trace blocks (v2 frames) ------------------------------------------------
 
 
+# trace ids: one random 64-bit base per process, then a counter (``next``
+# is atomic under the interpreter lock): no syscall on the per-frame path
+_TRACE_ID_BASE = int.from_bytes(os.urandom(8), "big")
+_TRACE_ID_SEQ = itertools.count()
+
+
 class Hop(NamedTuple):
-    """One stage transit record of a trace block."""
+    """One stage transit record: when the frame entered and left the stage."""
 
     stage: str
     recv_ns: int
     send_ns: int
 
 
-class TraceContext(NamedTuple):
-    """A parsed trace block."""
+class TraceContext:
+    """Per-frame trace state carried by the v2 trace block; each stage that
+    stamps appends its ``Hop``."""
 
-    trace_id: int
-    ingest_ns: int
-    hops: Tuple[Hop, ...]
+    __slots__ = ("trace_id", "ingest_ns", "hops")
+
+    def __init__(self, trace_id: int, ingest_ns: int,
+                 hops: Optional[List[Hop]] = None) -> None:
+        self.trace_id = trace_id
+        self.ingest_ns = ingest_ns
+        self.hops: List[Hop] = hops if hops is not None else []
+
+    @classmethod
+    def new(cls, ingest_ns: int) -> "TraceContext":
+        return cls((_TRACE_ID_BASE + next(_TRACE_ID_SEQ)) & 0xFFFFFFFFFFFFFFFF, ingest_ns)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, TraceContext) and self.trace_id == other.trace_id
+                and self.ingest_ns == other.ingest_ns and self.hops == other.hops)
+
+    def __repr__(self) -> str:
+        return (f"TraceContext({self.trace_id:#018x}, ingest={self.ingest_ns},"
+                f" hops={self.hops!r})")
+
+
+def pack_trace_block(ctx: TraceContext) -> bytes:
+    out = bytearray(ctx.trace_id.to_bytes(8, "big"))
+    _put_varint(out, ctx.ingest_ns)
+    _put_varint(out, len(ctx.hops))
+    for hop in ctx.hops:
+        name = hop.stage.encode("utf-8")
+        _put_varint(out, len(name))
+        out += name
+        _put_varint(out, hop.recv_ns)
+        _put_varint(out, hop.send_ns)
+    return bytes(out)
 
 
 def parse_trace_block(block: bytes) -> TraceContext:
@@ -169,7 +216,17 @@ def parse_trace_block(block: bytes) -> TraceContext:
         hops.append(Hop(stage, recv_ns, send_ns))
     if pos != len(block):
         raise FramingError("trailing bytes after trace block hops")
-    return TraceContext(trace_id, ingest_ns, tuple(hops))
+    return TraceContext(trace_id, ingest_ns, hops)
+
+
+def wrap_trace(payload: bytes, ctx: TraceContext) -> bytes:
+    """Payload (a v1 batch frame or a single message) → v2 frame."""
+    block = pack_trace_block(ctx)
+    out = bytearray(MAGIC_V2)
+    _put_varint(out, len(block))
+    out += block
+    out += payload
+    return bytes(out)
 
 
 def unwrap_trace(data: bytes) -> Tuple[bytes, Optional[TraceContext], bool]:
@@ -190,6 +247,25 @@ def unwrap_trace(data: bytes) -> Tuple[bytes, Optional[TraceContext], bool]:
     except FramingError:
         return data[start:], None, True
     return data[start:], ctx, False
+
+
+def peek_trace_id(data: bytes) -> Optional[int]:
+    """The trace id of a v2 frame (behind a tenant block, if any) without
+    parsing its hops; None for other frames and for a declared block too
+    short to hold an id."""
+    if data.startswith(MAGIC_TEN):
+        data = _skip_block(data, MAGIC_TEN)
+        if data is None:
+            return None
+    if not data.startswith(MAGIC_V2):
+        return None
+    try:
+        trace_len, pos = _get_varint(data, len(MAGIC_V2))
+    except FramingError:
+        return None
+    if trace_len < 8 or pos + 8 > len(data):
+        return None
+    return int.from_bytes(data[pos:pos + 8], "big")
 
 
 # -- tenant attribution --------------------------------------------------------
@@ -224,3 +300,41 @@ def unwrap_tenant(data: bytes) -> Tuple[bytes, Optional[str], bool]:
     except UnicodeDecodeError:
         return data[start:], None, True
     return data[start:], tenant, False
+
+
+# -- span frames (the telemetry channel) ----------------------------------------
+
+def pack_spans(spans: List[dict]) -> bytes:
+    """Span dicts → one span frame. Runs on the exporter's sender thread
+    (``telemetry/spans.py``), never on the engine loop."""
+    return pack_span_body(json.dumps(spans, separators=(",", ":")).encode("utf-8"))
+
+
+def pack_span_body(body: bytes) -> bytes:
+    """A span frame around ``body``, the compact JSON text of a list of
+    span dicts."""
+    out = bytearray(MAGIC_SPAN)
+    _put_varint(out, len(body))
+    out += body
+    return bytes(out)
+
+
+def unpack_spans(data: bytes) -> Optional[List[dict]]:
+    """Span frame → span dicts; None when ``data`` is not a span frame.
+    Raises FramingError on a garbled body: the frame is the telemetry, there
+    is no payload behind it to keep."""
+    if not data.startswith(MAGIC_SPAN):
+        return None
+    body_len, pos = _get_varint(data, len(MAGIC_SPAN))
+    end = pos + body_len
+    if end > len(data):
+        raise FramingError("span body length exceeds frame size")
+    if end != len(data):
+        raise FramingError("trailing bytes after span frame body")
+    try:
+        spans = json.loads(data[pos:end].decode("utf-8"))
+    except (UnicodeDecodeError, ValueError) as exc:
+        raise FramingError(f"undecodable span frame body: {exc}") from exc
+    if not isinstance(spans, list):
+        raise FramingError("span frame body is not a JSON list")
+    return spans

@@ -21,7 +21,11 @@ that the engine and the admin plane read:
   detector's ``scorer_dispatch`` upload workers) and checks (``add_check``,
   ``remove_check``: the capture ledger's ``scorer_warmup_pending`` and
   ``xla_recompile_storm``, ``engine/device_obs.py``), and emit structured
-  events (``emit_event``).
+  events (``emit_event``);
+* events and transitions carry the flight recorder's last completed trace
+  id (``trace_recorder``, attached by the Service), and JSON log records
+  the ``trace_id`` and ``tenant_bucket`` of the frame the logging thread
+  has in flight (``engine/tracing.py`` ``FRAME_CONTEXT``).
 
 The overload ladder of the shed subsystem is not ported.
 """
@@ -36,6 +40,7 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import metrics as m
+from . import tracing
 
 PASS = "pass"
 DEGRADED = "degraded"
@@ -241,6 +246,7 @@ class HealthMonitor:
         self._ingest_stall_s = ingest_stall_seconds
         self._events = events
         self._logger = logger
+        self.trace_recorder = None  # the engine's FlightRecorder, attached by the Service
         # a restart signal for pollers: counters reset with the process
         self._started_unix = round(time.time(), 3)
 
@@ -321,7 +327,9 @@ class HealthMonitor:
             "stage": self._stage,
         }
         doc.update(event)
-        doc.setdefault("trace_id", None)  # the port stamps no traces
+        recorder = self.trace_recorder
+        if recorder is not None and "trace_id" not in doc:
+            doc["trace_id"] = recorder.last_trace_id
         if self._events is not None:
             self._events.emit(doc)
         if self._logger is not None:
@@ -410,7 +418,8 @@ class HealthMonitor:
             "from": old,
             "to": new,
             "detail": detail,
-            "trace_id": None,
+            "trace_id": (self.trace_recorder.last_trace_id
+                         if self.trace_recorder is not None else None),
         }
         if self._events is not None:
             self._events.emit(event)
@@ -447,11 +456,16 @@ class HealthMonitor:
 
 class JsonLogFormatter(logging.Formatter):
     """``log_format: json``: one JSON object per record, with the component
-    identity; health transitions attach their event under ``event``."""
+    identity; health transitions attach their event under ``event``. A
+    record logged on a thread with a frame in flight (the engine loop)
+    carries its ``trace_id`` and ``tenant_bucket`` (the bucket, never the
+    raw tenant), so a stage's logs join the spans of the same frame."""
 
-    def __init__(self, static: Optional[Dict[str, str]] = None) -> None:
+    def __init__(self, static: Optional[Dict[str, str]] = None,
+                 tenant_buckets: int = tracing.TENANT_BUCKETS) -> None:
         super().__init__()
         self._static = dict(static or {})
+        self._tenant_buckets = max(1, tenant_buckets)
 
     def format(self, record: logging.LogRecord) -> str:
         doc: Dict[str, Any] = {
@@ -461,6 +475,12 @@ class JsonLogFormatter(logging.Formatter):
             "message": record.getMessage(),
         }
         doc.update(self._static)
+        trace_id = tracing.current_trace_id()
+        if trace_id is not None:
+            doc["trace_id"] = f"{trace_id:016x}"
+        tenant = tracing.current_tenant()
+        if tenant is not None:
+            doc["tenant_bucket"] = tracing.tenant_bucket(tenant, self._tenant_buckets)
         event = getattr(record, "dm_event", None)
         if event is not None:
             doc["event"] = event

@@ -68,6 +68,25 @@ INGRESS_BACKLOG = _series(
 OUTPUT_SEND_BACKLOG = _series(Gauge, "output_send_backlog",
                               "Output sockets currently waiting on a full peer queue")
 
+# pipeline tracing (engine_trace): every tracing stage observes its dwell and
+# the transit from the upstream stage; e2e only where a trace ends (no
+# forwarding outputs, trace_terminal, or trace_observe_e2e), so its count is
+# the pipeline's completed traces, not a per-hop multiple
+_DWELL_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                  0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+PIPELINE_STAGE_DWELL = _series(
+    Histogram, "pipeline_stage_dwell_seconds",
+    "Frame time inside this stage: ingress recv to egress send", buckets=_DWELL_BUCKETS)
+PIPELINE_TRANSIT = _series(
+    Histogram, "pipeline_transit_seconds",
+    "Wire + queue time from the upstream stage's send to this stage's recv",
+    buckets=_DWELL_BUCKETS)
+PIPELINE_E2E_LATENCY = _series(
+    Histogram, "pipeline_e2e_latency_seconds",
+    "Pipeline ingest to terminal-stage completion (terminal stage only)",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0))
+
 # service-owned series
 ENGINE_RUNNING = _series(Enum, "engine_running", "Engine run state",
                          states=["running", "stopped"])
@@ -100,8 +119,6 @@ DEVICE_BATCHES = _series(Counter, "detector_device_batches_total",
                          "Scored batches per device", DEVICE_LABELS)
 DEVICE_LINES = _series(Counter, "detector_device_lines_total",
                        "Scored lines per device", DEVICE_LABELS)
-_DWELL_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
-                  0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
 PATH_LABELS = ("component_type", "component_id", "path")
 BATCH_OCCUPANCY = _series(
     Histogram, "detector_batch_occupancy",
@@ -120,6 +137,16 @@ BUCKET_SELECTED = _series(
     Counter, "detector_bucket_selected_total",
     "Dispatches per compile bucket and scoring path (host CPU twin vs accelerator)",
     ("component_type", "component_id", "bucket", "path"))
+
+# which path featurized each row (the detector's featurize_rows): native =
+# rows the C featurizer tokenized, fallback = rows featurized in Python (the
+# rows the C side refused, or every row with native_featurize off)
+FEATURIZE_NATIVE_ROWS = _series(
+    Counter, "featurize_native_rows_total",
+    "Rows featurized by the native (C, row-parallel) kernel")
+FEATURIZE_FALLBACK_ROWS = _series(
+    Counter, "featurize_fallback_rows_total",
+    "Rows featurized by the Python fallback path (kernel-flagged or kernel unavailable)")
 
 # the capture ledger (engine/device_obs.py). The names keep "xla": they are
 # the JAX package's series, which the repo's dashboards and alert rules read
@@ -213,3 +240,44 @@ CAPACITY_HEADROOM = _series(
     Gauge, "capacity_headroom_ratio",
     "Offered line rate ÷ modeled capacity (0 = idle, 1 = saturated); the "
     "predictive scale-out signal beside the reactive backlog gauge")
+
+# cross-stage telemetry (telemetry/): spans the engine-side exporter dropped
+# instead of blocking the loop; the collector's spans by the tail-sampling
+# verdict of their trace, traces assembled, dropped by the sampler and
+# flushed incomplete, duplicate hops, OTLP pushes and open traces
+TELEMETRY_EXPORT_DROPPED = _series(
+    Counter, "telemetry_spans_export_dropped_total",
+    "Spans dropped by the engine-side exporter instead of blocking the hot "
+    "loop (bounded queue full, or the telemetry link refused the frame)")
+TELEMETRY_SPANS = _series(
+    Counter, "telemetry_spans_total",
+    "Hop spans ingested by the telemetry collector, by the tail-sampling "
+    "verdict of the trace they were assembled into",
+    ("component_type", "component_id", "verdict"))
+TELEMETRY_TRACES_ASSEMBLED = _series(
+    Counter, "telemetry_traces_assembled_total",
+    "Pipeline traces fully assembled by the collector (terminal hop seen "
+    "and the completion watermark passed)")
+TELEMETRY_TRACES_DROPPED = _series(
+    Counter, "telemetry_traces_dropped_total",
+    "Healthy assembled traces the tail sampler declined to retain "
+    "(1 - telemetry_sample_healthy_ratio of healthy traffic)")
+TELEMETRY_TRACES_INCOMPLETE = _series(
+    Counter, "telemetry_traces_incomplete_total",
+    "Traces flushed by the collector without a terminal hop after "
+    "telemetry_trace_timeout_s (a stage died, shed mid-pipeline, or its "
+    "exporter dropped the span)")
+TELEMETRY_SPANS_DEDUPED = _series(
+    Counter, "telemetry_spans_deduped_total",
+    "Duplicate (trace, stage) hop spans discarded during assembly — "
+    "router at-least-once redelivery makes these normal")
+TELEMETRY_OTLP_PUSHES = _series(
+    Counter, "telemetry_otlp_pushes_total",
+    "OTLP/JSON export batches pushed to telemetry_otlp_url, by result "
+    "(ok / error)",
+    ("component_type", "component_id", "result"))
+TELEMETRY_COLLECTOR_BACKLOG = _series(
+    Gauge, "telemetry_collector_backlog",
+    "Open (not yet completed or flushed) traces held by the collector's "
+    "assembler; sustained growth means the completion watermark is not "
+    "advancing (a stage's exporter went quiet) or ingest outruns assembly")

@@ -43,6 +43,11 @@ and ``run`` scores eagerly under the warm set's lock.
 Captures run only on a thread that owns the detector's device work: never
 while a background fit runs on another thread (``owner_ok``).
 
+A profiler capture (``utils/profiling.py``) synchronizes the device when it
+starts and stops, which would break a graph capture running on another
+thread: every warm set registers its lock with the process's profiler, which
+holds it through both transitions.
+
 **Other threads' device work.** The model lifecycle's threads (the rollout
 manager, the drift and capacity monitors, an admin verb) reach the device
 through the detector's rollout seams, never through ``Engine.call_in_loop``:
@@ -69,6 +74,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from ...ops import flash, scorehead
+from ...utils import profiling
 
 KINDS = ("score", "normscore", "token_nlls")
 
@@ -133,6 +139,7 @@ class WarmSet:
         self.replays: Dict[Tuple[str, int], int] = collections.Counter()
         self.replay_launches: Dict[str, int] = collections.Counter()
         self.captures = 0
+        profiling.PROFILER.register_capture_lock(self)
 
     @property
     def lock(self) -> threading.RLock:

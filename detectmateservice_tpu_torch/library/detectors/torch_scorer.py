@@ -49,7 +49,11 @@ header-map entries, for one) are retried in Python, which gives the same
 rows. ``setup_io`` builds the library with the host compiler; a failed build
 raises ``LibraryError`` there, where the JAX detector falls back to Python
 in silence. ``native_featurize: false`` featurizes every row in Python.
-``featurize_rows`` counts the rows each path featurized.
+``featurize_rows`` counts the rows each path featurized (under a Service
+also ``featurize_native_rows_total`` / ``featurize_fallback_rows_total``).
+Each device batch carries the flight recorder's last completed trace id
+(``_current_trace_id``, read through the health monitor) into its
+capture-ledger span and as the exemplar of its queue-wait sample.
 ``process_frames`` takes packed wire frames (``engine/framing.py``) as the
 JAX detector's does: in the fitted steady state one native call expands and
 featurizes the whole burst, and raw bytes are sliced only for the alerts.
@@ -238,16 +242,19 @@ class _InflightSlot:
     ``bucket`` is the padded row count; ``t_enqueue`` the dispatch call's
     time (for a coalesced release the oldest held row's arrival, so the
     queue wait includes the hold), ``t_start`` when scoring began (worker
-    pickup), and ``release`` why the coalescer let the batch go
-    (full/deadline/flush; None uncoalesced). ``tokens`` keeps the batch's
-    token rows only while a rollout sampler is attached (the drain offers
-    them with their scores)."""
+    pickup), ``trace_id`` the flight recorder's last completed trace at
+    dispatch (the link from a device batch to a pipeline trace), and
+    ``release`` why the coalescer let the batch go (full/deadline/flush;
+    None uncoalesced). ``tokens`` keeps the batch's token rows only while a
+    rollout sampler is attached (the drain offers them with their
+    scores)."""
 
     __slots__ = ("scores", "event", "raws", "real", "path", "bucket", "error", "done",
-                 "t_enqueue", "t_start", "release", "tokens")
+                 "t_enqueue", "t_start", "trace_id", "release", "tokens")
 
     def __init__(self, raws, real: int, path: str, bucket: int,
-                 release: Optional[str] = None, tokens: Optional[np.ndarray] = None):
+                 trace_id: Optional[str] = None, release: Optional[str] = None,
+                 tokens: Optional[np.ndarray] = None):
         self.scores: Any = None
         self.event: Optional[torch.cuda.Event] = None
         self.raws = raws
@@ -258,6 +265,7 @@ class _InflightSlot:
         self.done = threading.Event()
         self.t_enqueue = time.monotonic()
         self.t_start: Optional[float] = None
+        self.trace_id = trace_id
         self.release = release
         self.tokens = tokens
 
@@ -486,6 +494,7 @@ class TorchScorerDetector(CoreDetector):
         # rows featurized in C and rows featurized in Python (the retries of
         # rows the C side refused, or every row with native_featurize off)
         self.featurize_rows: Dict[str, int] = {"native": 0, "fallback": 0}
+        self._feat_counters: Optional[Tuple[Any, Any]] = None
         self._native_ready = False
         # weight-only int8 serving (dtype: int8w): the quantized state on the
         # device, live only after the parity gate passed, and the meta-device
@@ -877,6 +886,23 @@ class TorchScorerDetector(CoreDetector):
             self._native_ready = True
         return matchkern
 
+    def _count_featurize_rows(self, native: int, fallback: int) -> None:
+        """``featurize_rows``, and under a hosting Service
+        ``featurize_native_rows_total`` / ``featurize_fallback_rows_total``:
+        which path featurized how many rows."""
+        self.featurize_rows["native"] += native
+        self.featurize_rows["fallback"] += fallback
+        if self.metrics is None or not (native or fallback):
+            return
+        if self._feat_counters is None:
+            labels = self._obs_labels()
+            self._feat_counters = (self.metrics.FEATURIZE_NATIVE_ROWS().labels(**labels),
+                                   self.metrics.FEATURIZE_FALLBACK_ROWS().labels(**labels))
+        if native:
+            self._feat_counters[0].inc(native)
+        if fallback:
+            self._feat_counters[1].inc(fallback)
+
     def _featurize_raw_batch(self, batch: List[bytes]) -> Tuple[np.ndarray, np.ndarray]:
         """Serialized ParserSchema bytes → ([N, S] int32 tokens, [N] ok).
         Natively with ``native_featurize``, retrying in Python only the rows
@@ -887,13 +913,12 @@ class TorchScorerDetector(CoreDetector):
             flagged = np.flatnonzero(~ok)
             if len(flagged):
                 self._featurize_python_rows(batch, tokens, ok, flagged)
-            self.featurize_rows["native"] += len(batch) - len(flagged)
-            self.featurize_rows["fallback"] += len(flagged)
+            self._count_featurize_rows(len(batch) - len(flagged), len(flagged))
             return tokens, ok
         tokens = np.zeros((len(batch), cfg.seq_len), np.int32)
         ok = np.zeros(len(batch), dtype=bool)
         self._featurize_python_rows(batch, tokens, ok, range(len(batch)))
-        self.featurize_rows["fallback"] += len(batch)
+        self._count_featurize_rows(0, len(batch))
         return tokens, ok
 
     def _featurize_python_rows(self, batch: List[bytes], tokens: np.ndarray,
@@ -1166,8 +1191,7 @@ class TorchScorerDetector(CoreDetector):
         if len(flagged):
             # rows the C side refused: retried in Python, as in a batch
             self._featurize_python_rows(raws, fb.tokens, fb.ok, flagged)
-        self.featurize_rows["native"] += n - len(flagged)
-        self.featurize_rows["fallback"] += len(flagged)
+        self._count_featurize_rows(n - len(flagged), len(flagged))
         tokens = fb.tokens
         if not fb.ok.all():
             keep = np.flatnonzero(fb.ok)
@@ -1276,7 +1300,8 @@ class TorchScorerDetector(CoreDetector):
         # token rows ride the slot only while a sampler will take them
         keep_tokens = self._rollout_sampler is not None
         if 0 < n <= cap and self._host_model is not None:
-            slot = _InflightSlot(msgs, n, path="host", bucket=n, release=release,
+            slot = _InflightSlot(msgs, n, path="host", bucket=n,
+                                 trace_id=self._current_trace_id(), release=release,
                                  tokens=tokens if keep_tokens else None)
             if t_enqueue is not None:
                 slot.t_enqueue = t_enqueue
@@ -1300,8 +1325,8 @@ class TorchScorerDetector(CoreDetector):
             self._ensure_upload_workers()
         for start, chunk, real in _padded_chunks(tokens, bucket):
             slot = _InflightSlot(msgs[start:start + real], real, path="device",
-                                 bucket=bucket, release=release,
-                                 tokens=chunk if keep_tokens else None)
+                                 bucket=bucket, trace_id=self._current_trace_id(),
+                                 release=release, tokens=chunk if keep_tokens else None)
             if t_enqueue is not None:
                 slot.t_enqueue = t_enqueue
             self._inflight.append(slot)
@@ -1584,6 +1609,12 @@ class TorchScorerDetector(CoreDetector):
         return len(self._inflight) + (1 if held else 0)
 
     @property
+    def device(self) -> Optional[torch.device]:
+        """The device the detector scores on (None before ``setup_io``): a
+        profiler capture of its process records that device's activity."""
+        return self._device
+
+    @property
     def drain_poll_ms(self) -> Optional[int]:
         """The engine's short-poll tick while the coalescer may hold rows: a
         quarter of the deadline (the coalescer also releases a tick early),
@@ -1613,6 +1644,13 @@ class TorchScorerDetector(CoreDetector):
         lines.inc(n)
         batches.inc()
 
+    def _current_trace_id(self) -> Optional[str]:
+        """The flight recorder's last completed trace id (the engine's,
+        through the health monitor the Service hands in), or None off a
+        traced pipeline."""
+        recorder = getattr(self.health_monitor, "trace_recorder", None)
+        return recorder.last_trace_id if recorder is not None else None
+
     def _observe_batch(self, slot: _InflightSlot, device_s: float) -> None:
         """Per-batch telemetry when its scores become host-readable: the
         occupancy (real rows over the padded bucket), the queue wait
@@ -1623,7 +1661,7 @@ class TorchScorerDetector(CoreDetector):
         occ_n, occ_sum = self._occ_stats
         self._occ_stats = (occ_n + 1, occ_sum + slot.real / slot.bucket)
         self._ledger.record_span(slot.bucket, slot.real, slot.path, queue_wait_s,
-                                 max(0.0, device_s), release=slot.release)
+                                 max(0.0, device_s), slot.trace_id, release=slot.release)
         tap = self._capacity_tap
         if tap is not None:
             # the capacity model's arithmetic: every observed batch, any path
@@ -1639,7 +1677,11 @@ class TorchScorerDetector(CoreDetector):
             self._batch_children[slot.path] = children
         occupancy, queue_wait, device_seconds = children
         occupancy.observe(slot.real / slot.bucket)
-        queue_wait.observe(queue_wait_s)
+        # the exemplar links the sample to the trace in flight at dispatch
+        if slot.trace_id:
+            queue_wait.observe(queue_wait_s, {"trace_id": slot.trace_id})
+        else:
+            queue_wait.observe(queue_wait_s)
         device_seconds.observe(max(0.0, device_s))
         self.metrics.BUCKET_SELECTED().labels(
             bucket=str(slot.bucket), path=slot.path, **self._obs_labels()).inc()

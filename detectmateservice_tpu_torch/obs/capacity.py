@@ -24,12 +24,12 @@ ceiling?* Two measurement modes feed one model:
 (offered ÷ capacity) are exported per replica.
 
 :class:`SloTracker` is the threadless half: it rings counter snapshots of
-the pipeline's e2e latency histogram and per-stage dwell sums, and computes
-multi-window error ratios and burn rates on demand for ``GET /admin/slo``.
-The port does not stamp traces yet, so it has no ``pipeline_*`` series:
-the e2e counts stay 0, every burn window reports ``None`` and the dwell
-attribution is empty; the detector's own processing, queue-wait and
-device seconds are reported as in the JAX package.
+the pipeline's e2e latency histogram and per-stage dwell sums (the
+``pipeline_*`` series the engines of a traced pipeline observe,
+``engine_trace``) and the detector's processing, queue-wait and device
+sums, and computes multi-window error ratios and burn rates on demand for
+``GET /admin/slo``. Without tracing the e2e counts stay 0, every burn
+window reports ``None`` and the dwell attribution is empty.
 """
 from __future__ import annotations
 
@@ -267,18 +267,35 @@ class SloTracker:
                                "dwell": {}, "transit_s": 0.0,
                                "process_s": 0.0, "queue_wait_s": 0.0,
                                "device_s": 0.0}
-        # the pipeline_* series come with trace stamping, which the port
-        # does not carry yet: the e2e counts and dwell sums stay empty
         collectors = (
-            ("processing_duration_seconds", m.PROCESSING_DURATION, "process_s"),
-            ("detector_queue_wait_seconds", m.BATCH_QUEUE_WAIT, "queue_wait_s"),
-            ("detector_device_seconds", m.BATCH_DEVICE_SECONDS, "device_s"),
+            ("pipeline_e2e_latency_seconds", m.PIPELINE_E2E_LATENCY),
+            ("pipeline_stage_dwell_seconds", m.PIPELINE_STAGE_DWELL),
+            ("pipeline_transit_seconds", m.PIPELINE_TRANSIT),
+            ("processing_duration_seconds", m.PROCESSING_DURATION),
+            ("detector_queue_wait_seconds", m.BATCH_QUEUE_WAIT),
+            ("detector_device_seconds", m.BATCH_DEVICE_SECONDS),
         )
-        for base, accessor, key in collectors:
+        sums = {"pipeline_transit_seconds": "transit_s",
+                "processing_duration_seconds": "process_s",
+                "detector_queue_wait_seconds": "queue_wait_s",
+                "detector_device_seconds": "device_s"}
+        for base, accessor in collectors:
             for metric in accessor().collect():
                 for sample in metric.samples:
-                    if sample.name == f"{base}_sum":
-                        out[key] += sample.value
+                    if base == "pipeline_e2e_latency_seconds":
+                        if sample.name == f"{base}_count":
+                            out["e2e_count"] += sample.value
+                        elif (sample.name == f"{base}_bucket"
+                              and sample.labels.get("le") == SLO_LATENCY_LE):
+                            out["e2e_under"] += sample.value
+                    elif sample.name != f"{base}_sum":
+                        continue
+                    elif base == "pipeline_stage_dwell_seconds":
+                        # attributed by stage type, as the JAX tracker does
+                        stage = sample.labels.get("component_type", "unknown")
+                        out["dwell"][stage] = out["dwell"].get(stage, 0.0) + sample.value
+                    else:
+                        out[sums[base]] += sample.value
         return out
 
     def observe(self) -> None:

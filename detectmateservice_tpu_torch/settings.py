@@ -8,9 +8,13 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
   ``checkpoint_dir``, the watchdog (``watchdog_*``), ``event_ring_size``,
   ``recompile_alert_enabled`` (the capture ledger's alerts), ``log_format``,
   ``send_batch_max``, ``transport_backend``, ``dlq_max_attempts`` (the
-  attempt budget of poison isolation), and the model lifecycle's
+  attempt budget of poison isolation), the model lifecycle's
   ``rollout_*``, ``drift_*`` and ``capacity_*`` (``rollout_enabled``
-  requires ``rollout_dir``, ``drift_enabled`` requires ``rollout_enabled``);
+  requires ``rollout_dir``, ``drift_enabled`` requires ``rollout_enabled``),
+  pipeline tracing (``engine_trace``, ``trace_*``), cross-stage telemetry
+  (``telemetry_*``; ``telemetry_addr`` requires ``engine_trace``,
+  ``telemetry_collector`` requires ``telemetry_collector_addr``) and the
+  profiler's ``profile_dir`` and ``profile_max_captures``;
 * ``DETECTMATE_``-prefixed environment overrides with ``__`` nesting, env
   winning over YAML per field; strings from the environment are converted
   to the field's type;
@@ -18,9 +22,9 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
 * transport addresses checked against the JAX package's scheme set.
 
 Every field of a JAX subsystem the port does not carry yet (the replica
-router, the WAL and DLQ, shed, telemetry, tracing,
-zero-copy framing, TLS, fault plans, the coordinator, the mesh, the compile
-cache, profiling, multi-ingress shards and the JAX platform pin) is known
+router, the WAL and DLQ, shed, zero-copy framing, TLS, fault plans, the
+coordinator, the mesh, the compile cache, multi-ingress shards and the JAX
+platform pin) is known
 with its default: set away from it, it raises ``SettingsError`` naming the
 field and its subsystem. So are addresses whose transport is not ported. A
 setting is never silently ignored.
@@ -79,21 +83,12 @@ UNPORTED: Dict[str, tuple] = {
     "engine_ingress_addrs": ([], "multi-ingress shards"),
     "tls_input": (None, "TLS"),
     "tls_output": (None, "TLS"),
-    "engine_trace": (False, "pipeline tracing (engine_trace)"),
-    "trace_stage": (None, "pipeline tracing (engine_trace)"),
-    "trace_terminal": (None, "pipeline tracing (engine_trace)"),
-    "trace_observe_e2e": (False, "pipeline tracing (engine_trace)"),
-    "trace_slowest": (32, "pipeline tracing (engine_trace)"),
-    "trace_sampled": (128, "pipeline tracing (engine_trace)"),
-    "trace_sample_every": (64, "pipeline tracing (engine_trace)"),
     "zero_copy_framing": (False, "zero-copy framing"),
     "zero_copy_slots": (32, "zero-copy framing"),
     "zero_copy_slot_bytes": (262144, "zero-copy framing"),
     "backend": ("auto", "the JAX platform pin (the detector's device is set by "
                         "`device` in its component config)"),
     "mesh_shape": (None, "the device mesh"),
-    "profile_dir": (None, "profiling"),
-    "profile_max_captures": (4, "profiling"),
     "coordinator_address": (None, "the coordinator"),
     "num_processes": (1, "the coordinator"),
     "process_id": (0, "the coordinator"),
@@ -126,17 +121,6 @@ UNPORTED: Dict[str, tuple] = {
     "shed_ladder_backlog_t2": (1024.0, "shed"),
     "shed_ladder_backlog_t3": (4096.0, "shed"),
     "shed_ladder_recovery_intervals": (2, "shed"),
-    "telemetry_addr": (None, "telemetry"),
-    "telemetry_queue_size": (4096, "telemetry"),
-    "telemetry_flush_interval_ms": (50.0, "telemetry"),
-    "telemetry_collector": (False, "telemetry"),
-    "telemetry_collector_addr": (None, "telemetry"),
-    "telemetry_sample_healthy_ratio": (0.05, "telemetry"),
-    "telemetry_slo_ms": (1000.0, "telemetry"),
-    "telemetry_settle_ms": (200.0, "telemetry"),
-    "telemetry_trace_timeout_s": (5.0, "telemetry"),
-    "telemetry_retain_traces": (256, "telemetry"),
-    "telemetry_otlp_url": (None, "telemetry"),
 }
 
 
@@ -175,6 +159,23 @@ class ServiceSettings:
     # with other payloads turns it off
     engine_frame_autodetect: bool = True
 
+    # -- pipeline tracing (engine/tracing.py) ------------------------------
+    # stamp this stage's hop into v2 traced frames sent downstream (the
+    # receivers strip or propagate them); needs engine_frame_autodetect
+    engine_trace: bool = False
+    # the hop's stage name; default component_name, else component_type
+    trace_stage: Optional[str] = None
+    # None: a stage with no forwarding outputs ends the trace (e2e, the
+    # flight recorder); true: this stage ends it although it forwards, and
+    # its downstream sees plain frames
+    trace_terminal: Optional[bool] = None
+    # observe e2e at every egress while still propagating the trace
+    trace_observe_e2e: bool = False
+    # the flight recorder: N slowest, a ring of sampled traces, 1 in K sampled
+    trace_slowest: int = _field(32, ge=1, le=1024)
+    trace_sampled: int = _field(128, ge=1, le=8192)
+    trace_sample_every: int = _field(64, ge=1)
+
     # -- outputs ----------------------------------------------------------
     out_addr: List[str] = _field([], addr=True)
     out_dial_timeout: int = _field(1000, ge=0)  # ms
@@ -199,6 +200,12 @@ class ServiceSettings:
     checkpoint_dir: Optional[str] = None
     # processing attempts before poison isolation drops a message
     dlq_max_attempts: int = _field(3, ge=1, le=100)
+    # on-demand torch.profiler captures (POST /admin/profile) land in
+    # numbered subdirectories of profile_dir (default: a per-process
+    # directory under the temp directory), pruned to the newest
+    # profile_max_captures
+    profile_dir: Optional[str] = None
+    profile_max_captures: int = _field(4, ge=1, le=64)
 
     # -- self-diagnosis (engine/health.py) --------------------------------
     watchdog_enabled: bool = True
@@ -265,12 +272,39 @@ class ServiceSettings:
     capacity_probe_idle_s: float = _field(30.0, ge=0.0)
     capacity_window_s: float = _field(60.0, ge=1.0)
 
+    # -- cross-stage telemetry (telemetry/) -------------------------------
+    # where this stage's engine ships its hop spans (the collector's
+    # telemetry_collector_addr); needs engine_trace
+    telemetry_addr: Optional[str] = _field(None, addr=True)
+    # the bounded span queue on the engine loop: when full a span is
+    # dropped and counted, never a frame
+    telemetry_queue_size: int = _field(4096, ge=16, le=1048576)
+    telemetry_flush_interval_ms: float = _field(50.0, ge=1.0, le=10000.0)
+    # the collector (one stage per pipeline): assemble spans into traces,
+    # tail-sample them, serve GET /admin/traces
+    telemetry_collector: bool = False
+    telemetry_collector_addr: Optional[str] = _field(None, addr=True)
+    # the anomalous tail is always kept; healthy traces at this ratio, by a
+    # hash of the trace id
+    telemetry_sample_healthy_ratio: float = _field(0.05, ge=0.0, le=1.0)
+    # e2e above this is "slow" (kept)
+    telemetry_slo_ms: float = _field(1000.0, gt=0.0)
+    # a trace with its terminal hop completes once the newest send time
+    # seen across all spans is this far past the trace's own newest hop
+    telemetry_settle_ms: float = _field(200.0, ge=0.0, le=60000.0)
+    # collector-clock deadline after which a trace is flushed regardless
+    telemetry_trace_timeout_s: float = _field(5.0, gt=0.0, le=600.0)
+    telemetry_retain_traces: int = _field(256, ge=8, le=65536)
+    # an OTLP/HTTP traces endpoint the kept traces are pushed to
+    telemetry_otlp_url: Optional[str] = None
+
     def __post_init__(self) -> None:
         hints = typing.get_type_hints(type(self))
         for f in dataclasses.fields(self):
             value = _check(f, hints[f.name], getattr(self, f.name))
             object.__setattr__(self, f.name, value)
-        for addr in [self.engine_addr, *self.out_addr]:
+        telemetry = [a for a in (self.telemetry_addr, self.telemetry_collector_addr) if a]
+        for addr in [self.engine_addr, *self.out_addr, *telemetry]:
             scheme = addr.split("://", 1)[0]
             if scheme not in PORTED_SCHEMES:
                 raise SettingsError(
@@ -287,6 +321,14 @@ class ServiceSettings:
             raise SettingsError(
                 "drift_enabled requires rollout_enabled: the drift monitor reads the "
                 "rollout traffic reservoir and pins its baseline in the rollout store")
+        if self.telemetry_collector and not self.telemetry_collector_addr:
+            raise SettingsError(
+                "telemetry_collector requires telemetry_collector_addr "
+                "(the address the collector listens for span frames on)")
+        if self.telemetry_addr and not self.engine_trace:
+            raise SettingsError(
+                "telemetry_addr requires engine_trace: spans are built "
+                "from the hop records the tracing path stamps")
         if not self.component_id:
             if self.component_name:
                 seed = f"detectmate/{self.component_type}/{self.component_name}"

@@ -5,13 +5,24 @@ that this package's subsystems back: ``GET /metrics`` (the port's own
 registry), ``/admin/status``, ``/admin/health`` (``?deep=1`` evaluates the
 checks and answers 503 unless healthy), ``/admin/events``, ``/admin/xla``
 (the capture ledger's snapshot, ``?limit=``; host state only, no CUDA
-tensor is touched from the HTTP thread), the model lifecycle's ``GET
+tensor is touched from the HTTP thread), ``/admin/trace`` (the flight
+recorder: JSON, or ``?format=chrome``, which on the stage hosting the
+telemetry collector is the cross-stage Perfetto document), ``/admin/traces``
+(the collector's assembled traces, ``?id=`` one of them, ``?format=perfetto``
+or ``otlp``; 404 without a collector), the profiler's ``GET
+/admin/profile`` (status) and ``/admin/profile/latest`` (the newest capture
+as a zip; 404 before the first, 409 while one runs) and ``POST
+/admin/profile`` (``?seconds=`` or a JSON body; 409 while a capture runs,
+400 on bad seconds), the model lifecycle's ``GET
 /admin/model`` (``?history=1`` for the checkpoint log), ``/admin/drift`` and
 ``/admin/slo`` (404 where the subsystem is off), and ``POST
 /admin/start``, ``/stop``, ``/shutdown``, ``/reconfigure``, ``/checkpoint``
 and ``/model`` (``promote``, ``rollback``, ``pin``, ``unpin``, ``cycle``;
 an unknown action or a state conflict is a 400). The JAX package's other
 routes (``UNPORTED_ROUTES``) answer 404 until their subsystem is ported.
+``GET /metrics?format=openmetrics`` carries the exemplars: the trace id on
+``pipeline_e2e_latency_seconds`` buckets where spans leave for a collector,
+and on ``detector_queue_wait_seconds`` buckets of a traced pipeline.
 
 Handlers take ``(service, query, payload)``: the parsed query string, and
 the decoded JSON body (``{}`` when empty; GET handlers get ``None``).
@@ -57,6 +68,17 @@ def _int_param(query: Dict[str, List[str]], name: str,
         raise ValueError(f"{name} must be an integer") from None
 
 
+def _float_param(query: Dict[str, List[str]], name: str,
+                 default: Optional[float] = None) -> Optional[float]:
+    raw = (query.get(name) or [None])[0]
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be a number") from None
+
+
 def _metrics(service, query, payload) -> Response:
     fmt = (query.get("format") or ["prometheus"])[0]
     if fmt == "openmetrics":
@@ -92,6 +114,74 @@ def _xla(service, query, payload) -> Response:
     limit = _int_param(query, "limit", default=-1)
     return Response(200, device_obs.get_ledger().snapshot(
         limit if limit is not None and limit >= 0 else None))
+
+
+def _trace(service, query, payload) -> Response:
+    fmt = (query.get("format") or ["json"])[0]
+    recorder = service.engine.trace_recorder
+    if fmt == "chrome":
+        # the stage hosting the collector serves the cross-stage view; any
+        # other stage only its own hops, and says so
+        collector = getattr(service, "telemetry", None)
+        if collector is not None:
+            return Response(200, collector.perfetto_events())
+        doc = recorder.chrome_events()
+        doc["localOnly"] = True
+        return Response(200, doc)
+    if fmt == "json":
+        body = recorder.snapshot()
+        body["tracing_enabled"] = bool(service.settings.engine_trace)
+        return Response(200, body)
+    return Response(400, {"detail": f"unknown format {fmt!r}"})
+
+
+def _traces(service, query, payload) -> Response:
+    collector = getattr(service, "telemetry", None)
+    if collector is None:
+        return Response(404, {"detail": "this stage runs no telemetry collector "
+                                        "(telemetry_collector not set)"})
+    trace_id = (query.get("id") or [None])[0]
+    if trace_id is not None:
+        trace = collector.trace(trace_id)
+        if trace is None:
+            return Response(404, {"detail": f"trace {trace_id!r} is not in the retained "
+                                            "ring (sampled out, expired, or never seen)"})
+        return Response(200, trace)
+    fmt = (query.get("format") or ["json"])[0]
+    if fmt == "perfetto":
+        return Response(200, collector.perfetto_events())
+    if fmt == "otlp":
+        return Response(200, collector.otlp_payload())
+    if fmt == "json":
+        return Response(200, collector.snapshot(limit=_int_param(query, "limit")))
+    return Response(400, {"detail": f"unknown format {fmt!r}"})
+
+
+def _profile_dir(service) -> str:
+    from ..utils.profiling import PROFILER
+
+    return service.settings.profile_dir or PROFILER.default_dir()
+
+
+def _profile_status(service, query, payload) -> Response:
+    from ..utils.profiling import PROFILER
+
+    status = PROFILER.status()
+    status["profile_dir"] = _profile_dir(service)
+    return Response(200, status)
+
+
+def _profile_latest(service, query, payload) -> Response:
+    from ..utils.profiling import PROFILER
+
+    base_dir = _profile_dir(service)
+    if PROFILER.status()["running"]:
+        return Response(409, {"detail": "capture still running; retry when "
+                                        "GET /admin/profile reports done"})
+    archive = PROFILER.zip_latest(base_dir)
+    if archive is None:
+        return Response(404, {"detail": f"no completed capture under {base_dir}"})
+    return Response(200, archive[1], content_type="application/zip")
 
 
 def _start(service, query, payload) -> Response:
@@ -149,6 +239,29 @@ def _slo(service, query, payload) -> Response:
     return Response(200, body)
 
 
+def _profile_start(service, query, payload) -> Response:
+    from ..utils.profiling import PROFILER, ProfileBusyError
+
+    payload = payload or {}
+    seconds = _float_param(query, "seconds")
+    if seconds is None:
+        seconds = payload.get("seconds")
+    if seconds is None:
+        # the JAX package's older body shape
+        seconds = float(payload.get("duration_ms", 1000)) / 1000.0
+    base_dir = payload.get("out_dir") or _profile_dir(service)
+    # the activities follow the hosted component's device (None: no device
+    # work, the host only)
+    device = getattr(service.library_component, "device", None)
+    try:
+        info = PROFILER.start(base_dir, float(seconds), service.settings.profile_max_captures,
+                              device=device)
+    except ProfileBusyError as exc:
+        return Response(409, {"detail": str(exc)})
+    info["detail"] = "capture started"
+    return Response(200, info)
+
+
 def _model_control(service, query, payload) -> Response:
     from ..rollout import RolloutError, StoreError
 
@@ -189,7 +302,14 @@ ROUTES: Tuple[Route, ...] = (
     Route("GET", "/admin/status", _status, "status report"),
     Route("GET", "/admin/health", _health, "liveness / deep health"),
     Route("GET", "/admin/events", _events, "structured event ring"),
+    Route("GET", "/admin/trace", _trace, "pipeline flight recorder"),
+    Route("GET", "/admin/traces", _traces,
+          "telemetry collector: assembled cross-stage traces "
+          "(?id=<hex> for one, ?format=perfetto|otlp for exports)"),
     Route("GET", "/admin/xla", _xla, "capture ledger + device-batch spans"),
+    Route("GET", "/admin/profile", _profile_status, "profiler capture status"),
+    Route("GET", "/admin/profile/latest", _profile_latest,
+          "download the newest completed capture as a zip"),
     Route("GET", "/admin/model", _model,
           "model lifecycle status (?history=1 for the checkpoint log)"),
     Route("GET", "/admin/drift", _drift,
@@ -203,17 +323,17 @@ ROUTES: Tuple[Route, ...] = (
     Route("POST", "/admin/shutdown", _shutdown, "shut the service down"),
     Route("POST", "/admin/reconfigure", _reconfigure, "validate + apply component config"),
     Route("POST", "/admin/checkpoint", _checkpoint, "checkpoint component state"),
+    Route("POST", "/admin/profile", _profile_start,
+          "start an on-demand torch.profiler capture"),
     Route("POST", "/admin/model", _model_control,
           "model lifecycle verbs: promote/rollback/pin/unpin/cycle"),
 )
 
 # the JAX package's routes whose subsystems are not ported: they answer 404
 UNPORTED_ROUTES: Tuple[Tuple[str, str], ...] = (
-    ("GET", "/admin/trace"), ("GET", "/admin/traces"),
-    ("GET", "/admin/profile"), ("GET", "/admin/load"), ("GET", "/admin/profile/latest"),
-    ("GET", "/admin/replicas"), ("GET", "/admin/replay"),
+    ("GET", "/admin/load"), ("GET", "/admin/replicas"), ("GET", "/admin/replay"),
     ("GET", "/admin/faults"), ("GET", "/admin/dlq"), ("GET", "/admin/tenants"),
-    ("POST", "/admin/profile"), ("POST", "/admin/load"), ("POST", "/admin/replicas"),
+    ("POST", "/admin/load"), ("POST", "/admin/replicas"),
     ("POST", "/admin/faults"), ("POST", "/admin/dlq"),
     ("POST", "/admin/replay"),
 )

@@ -627,3 +627,95 @@ def test_lifecycle_phase_on_the_cpu(monkeypatch, capsys):
     assert result["capacity"]["probe_failures"] == 0
     assert result["xla"]["totals"]["unexpected"] == 0
     assert stand_in.launches >= result["launches"] > 0
+
+
+def test_device_busy_unions_kernel_intervals_inside_the_window():
+    events = [{"cat": "Trace", "ph": "X", "ts": 0.0, "dur": 100.0},
+              {"cat": "kernel", "ph": "X", "ts": 10.0, "dur": 20.0},
+              {"cat": "kernel", "ph": "X", "ts": 25.0, "dur": 10.0},   # overlaps
+              {"cat": "gpu_memcpy", "ph": "X", "ts": 50.0, "dur": 5.0},
+              {"cat": "kernel", "ph": "X", "ts": 90.0, "dur": 30.0},   # past the end
+              {"cat": "cpu_op", "ph": "X", "ts": 40.0, "dur": 50.0}]
+    busy = chip_smoke.device_busy(events)
+    assert busy["busy_share"] == pytest.approx((25 + 10) / 100)
+    assert busy["busy_share_with_copies"] == pytest.approx((25 + 5 + 10) / 100)
+    assert [g["ms"] for g in busy["idle_gaps"]] == pytest.approx([0.055, 0.01])
+    assert busy["idle_gaps"][0]["at_ms"] == pytest.approx(0.035)
+
+
+def test_histogram_quantile_interpolates_inside_its_bucket():
+    hist = {"buckets": {0.01: 50.0, 0.1: 90.0, float("inf"): 100.0}, "count": 100.0}
+    assert chip_smoke.histogram_quantile(hist, 0.5) == pytest.approx(0.01)
+    assert chip_smoke.histogram_quantile(hist, 0.7) == pytest.approx(0.055)
+    assert chip_smoke.histogram_quantile(hist, 0.99) == pytest.approx(0.1)
+
+
+def test_trace_settings_change_only_what_the_phase_names(tmp_path):
+    """The detector is the coalesce phase's, with tracing, trace_terminal,
+    span export and a profile directory; the relay and the sink are core
+    stages around it, flow-controlled."""
+    import yaml
+
+    from detectmateservice_tpu_torch.settings import ServiceSettings
+
+    relay, det, sink = chip_smoke.trace_settings(tmp_path, "cuda")
+    relay, sink = ServiceSettings(**relay), ServiceSettings(**sink)
+    (tmp_path / "c").mkdir()
+    coalesce = yaml.safe_load(chip_smoke.coalesce_files(tmp_path / "c").read_text())
+    for key, value in coalesce.items():
+        if key not in ("engine_addr", "out_addr", "http_port", "log_dir", "config_file"):
+            assert getattr(det, key) == value, key
+    assert (det.engine_trace, det.trace_terminal, det.trace_stage) == (True, True, "detector")
+    assert det.telemetry_addr == relay.telemetry_addr == sink.telemetry_collector_addr
+    assert det.profile_max_captures == 2
+    assert relay.out_addr == [det.engine_addr] and sink.engine_addr == det.out_addr[0]
+    assert relay.component_type == sink.component_type == "core"
+    assert sink.telemetry_collector and sink.trace_terminal
+    assert relay.out_backpressure == sink.out_backpressure == "block"
+
+
+def test_trace_phase_on_the_cpu(monkeypatch, capsys):
+    """Phase 15 at a narrowed width (vocab 1024) on the CPU with a counting
+    stand-in for the fused head, without the capture's CUDA checks: the
+    traced pipeline delivers every line and alert, the flight recorder,
+    the pipeline counts, the SLO windows, the collector and its exemplar,
+    the profile routes and the pruning hold."""
+    import json
+
+    stand_in = _counting_stand_in(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "TRACE_DETECT", 4096)
+    monkeypatch.setattr(chip_smoke, "TRACE_PROFILE_S", 0.5)
+    result = chip_smoke.phase_trace("cpu", device="cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [line["phase"] for line in lines] == ["trace"]
+    n = result["relay_frames"]
+    assert n == 512 + 4096 + 64
+    assert result["recorder"] == {"tracing_enabled": True, "completed": n,
+                                  "hops": [["relay", "detector"]]}
+    assert result["pipeline_counts"]["e2e_latency_seconds"]["detector"] == n
+    assert result["alerts"] == result["unique_alerts"] and result["recall"] >= 0.9
+    assert result["profile"]["post"] == 200 and result["profile"]["second_post"] == 409
+    assert result["profile"]["kept"] == ["capture-0002", "capture-0003"]
+    assert result["profile"]["capture"]["activities"] == ["cpu"]
+    assert result["collector"]["two_hop"] > 0
+    assert 0 < result["e2e_p50_ms"] <= result["e2e_p99_ms"]
+    assert stand_in.launches >= result["launches"] > 0
+
+
+def test_the_late_wire_frame_capture_on_the_cpu(monkeypatch, capsys):
+    """Phase 7b's capture at a tiny width on the CPU: the host's activity
+    only, the path driven while it records, one JSON line."""
+    import json
+
+    _counting_stand_in(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "SCORER_CONFIG", dict(
+        chip_smoke.SCORER_CONFIG, vocab_size=1024, dim=128, max_batch=1024,
+        data_use_training=128))
+    monkeypatch.setattr(chip_smoke, "N_DETECT", 4096)
+    monkeypatch.setattr(chip_smoke, "TRACE_PROFILE_S", 0.3)
+    result = chip_smoke.phase_frames_profile("cpu", device="cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "frames_profile" and line["card"] == "cpu"
+    assert result["capture"]["activities"] == ["cpu"] and result["capture"]["trace_bytes"] > 0
+    assert result["lines_per_s"] > 0 and "device" not in result

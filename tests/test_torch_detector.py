@@ -644,8 +644,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     this one): the port, its detector and warm set, its ops, its featurizer
     and framing, its service host (settings, config, engine, sockets,
     metrics, health, the capture ledger, admin plane, CLI), its model
-    lifecycle (rollout, drift, capacity), chip_smoke.py and bench_torch.py
-    load without any of the forbidden modules."""
+    lifecycle (rollout, drift, capacity), its observability plane (the
+    flight recorder, telemetry, the profiler), chip_smoke.py and
+    bench_torch.py load without any of the forbidden modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import detectmateservice_tpu_torch\n"
@@ -676,6 +677,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.cli\n"
         "import detectmateservice_tpu_torch.rollout\n"
         "import detectmateservice_tpu_torch.obs\n"
+        "import detectmateservice_tpu_torch.engine.tracing\n"
+        "import detectmateservice_tpu_torch.telemetry\n"
+        "import detectmateservice_tpu_torch.telemetry.otlp\n"
+        "import detectmateservice_tpu_torch.telemetry.perfetto\n"
+        "import detectmateservice_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "import bench_torch\n"
         "print(' '.join(sorted(sys.modules)))\n")
@@ -697,6 +703,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "detectmateservice_tpu_torch.rollout.manager" in loaded
     assert "detectmateservice_tpu_torch.obs.drift" in loaded
     assert "detectmateservice_tpu_torch.obs.capacity" in loaded
+    for name in ("engine.tracing", "telemetry.spans", "telemetry.collector",
+                 "telemetry.otlp", "telemetry.perfetto", "utils.profiling"):
+        assert f"detectmateservice_tpu_torch.{name}" in loaded
     assert "bench_torch" in loaded
 
 

@@ -5,8 +5,8 @@ documents and events, start the same cycles and keep the same cooldown; a
 baseline persisted in the port's store resumes after a restart; the capacity
 monitors give equal documents from traffic arithmetic, the idle probe and
 its hold; the SLO tracker computes the same burn windows from the same
-counts, and, with no trace stamping in the port, reports ``None`` windows
-(a deliberate difference: no ``pipeline_*`` series)."""
+counts, and on a traced Service its burn windows and dwell attribution
+fill from the ``pipeline_*`` series."""
 import json
 import time
 from types import SimpleNamespace
@@ -373,19 +373,47 @@ def test_burn_windows_equal_the_jax_trackers_on_the_same_counts():
     assert docs[1]["burn"]["1h"]["traces"] == 300 and docs[1]["burn"]["5m"]["traces"] == 0
 
 
-def test_without_trace_stamping_the_burn_windows_are_none():
-    """A deliberate difference: the port has no ``pipeline_*`` series yet,
-    so a live tracker counts no trace; the detector's own sums are read."""
+def test_on_a_traced_service_the_burn_windows_fill():
+    """With trace stamping the tracker reads the ``pipeline_*`` series: a
+    traced port Service in reply mode ends every trace it originates, so its
+    e2e count, its burn windows and the dwell attribution of its stage fill,
+    beside the detector's own sums; the document has the JAX keys."""
+    import tempfile
+
+    from detectmateservice_tpu_torch.core import Service
+    from detectmateservice_tpu_torch.engine.socket import ZmqPairSocketFactory
+    from detectmateservice_tpu_torch.settings import ServiceSettings
+
     for name in ("pipeline_e2e_latency_seconds", "pipeline_stage_dwell_seconds",
                  "pipeline_transit_seconds"):
-        assert name not in port_metrics.REGISTERED_SERIES
-    labels = dict(LABELS, path="device")
-    port_metrics.BATCH_DEVICE_SECONDS().labels(**labels).observe(0.25)
-    snap = SloTracker().snapshot()
-    assert snap["e2e"] == {"traces_total": 0, "traces_over_slo": 0,
-                           "cumulative_error_ratio": None}
-    assert all(w["error_ratio"] is None and w["burn_rate"] is None
-               for w in snap["burn"].values())
-    assert snap["stages"]["dwell_seconds"] == {} and snap["stages"]["dwell_share"] == {}
+        assert name in port_metrics.REGISTERED_SERIES
+    port_metrics.BATCH_DEVICE_SECONDS().labels(**dict(LABELS, path="device")).observe(0.25)
+    short = tempfile.mkdtemp(prefix="dmslo", dir="/tmp")
+    settings = ServiceSettings(component_id="slo-traced", engine_addr=f"ipc://{short}/in.ipc",
+                               engine_trace=True, http_port=0, log_to_file=False,
+                               log_to_console=False, watchdog_enabled=False)
+    with Service(settings) as svc:
+        first = svc.slo.snapshot()
+        svc.start()
+        sender = ZmqPairSocketFactory().create_output(f"ipc://{short}/in.ipc")
+        sender.recv_timeout = 5000
+        try:
+            for i in range(20):
+                sender.send(b"line %d" % i)
+                assert sender.recv() == b"line %d" % i
+            deadline = time.monotonic() + 5.0
+            while (svc.engine.trace_recorder.completed < 20
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+        finally:
+            sender.close()
+        snap = svc.slo.snapshot()
+    assert svc.engine.trace_recorder.completed == 20
+    assert snap["e2e"]["traces_total"] - first["e2e"]["traces_total"] == 20
+    windows = snap["burn"].values()
+    assert all(w["traces"] >= 20 and w["error_ratio"] is not None
+               and w["burn_rate"] is not None for w in windows)
+    assert snap["stages"]["dwell_seconds"]["core"] > 0
+    assert "core" in snap["stages"]["dwell_share"]
     assert snap["stages"]["detector"]["device_seconds"] >= 0.25
     assert set(snap) == set(RefSlo().snapshot())

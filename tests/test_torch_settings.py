@@ -41,8 +41,17 @@ YAML = {
     "drift_trigger_intervals": 2, "drift_clear_intervals": 3,
     "drift_min_cycle_interval_s": 0, "capacity_enabled": True, "capacity_interval_s": 0.5,
     "capacity_probe_rows": 128, "capacity_probe_idle_s": 1, "capacity_window_s": 10,
+    "engine_trace": True, "trace_stage": "scorer", "trace_terminal": True,
+    "trace_observe_e2e": True, "trace_slowest": 8, "trace_sampled": 16,
+    "trace_sample_every": 4, "profile_dir": "/tmp/dm-profiles", "profile_max_captures": 2,
+    "telemetry_addr": "ipc:///tmp/dm-tel.ipc", "telemetry_queue_size": 64,
+    "telemetry_flush_interval_ms": 10, "telemetry_collector": True,
+    "telemetry_collector_addr": "ipc:///tmp/dm-tel.ipc",
+    "telemetry_sample_healthy_ratio": 0.5, "telemetry_slo_ms": 250,
+    "telemetry_settle_ms": 50, "telemetry_trace_timeout_s": 2, "telemetry_retain_traces": 32,
+    "telemetry_otlp_url": "http://127.0.0.1:4318/v1/traces",
     # unported subsystems at their defaults are accepted
-    "engine_trace": False, "router_replicas": [], "shed_enabled": False,
+    "router_replicas": [], "shed_enabled": False,
 }
 ENV = {"DETECTMATE_HTTP_PORT": "0", "DETECTMATE_ENGINE_FRAME_BATCH": "8",
        "DETECTMATE_COMPONENT_ID": "abc123"}
@@ -168,3 +177,44 @@ def test_from_yaml_exits_on_an_unported_setting(tmp_path, capsys):
         ServiceSettings.from_yaml(str(path))
     assert err.value.code == 1
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kw", [
+    {"trace_slowest": 0}, {"trace_slowest": 1025}, {"trace_sampled": 0},
+    {"trace_sampled": 8193}, {"trace_sample_every": 0}, {"profile_max_captures": 0},
+    {"profile_max_captures": 65}, {"telemetry_queue_size": 15},
+    {"telemetry_queue_size": 1048577}, {"telemetry_flush_interval_ms": 0.5},
+    {"telemetry_flush_interval_ms": 10001}, {"telemetry_sample_healthy_ratio": -0.1},
+    {"telemetry_sample_healthy_ratio": 1.5}, {"telemetry_slo_ms": 0},
+    {"telemetry_settle_ms": -1}, {"telemetry_settle_ms": 60001},
+    {"telemetry_trace_timeout_s": 0}, {"telemetry_trace_timeout_s": 601},
+    {"telemetry_retain_traces": 7}, {"telemetry_retain_traces": 65537},
+    {"engine_trace": True, "telemetry_addr": "tcp://host"},
+    {"engine_trace": "sometimes"}, {"trace_terminal": "maybe"}])
+def test_observability_bounds_raise_in_both(kw):
+    with pytest.raises(ValueError):
+        RefSettings(**kw)
+    with pytest.raises(SettingsError):
+        ServiceSettings(**kw)
+
+
+@pytest.mark.parametrize("kw,needs", [
+    ({"telemetry_addr": "ipc:///tmp/tel.ipc"}, "engine_trace"),
+    ({"telemetry_collector": True}, "telemetry_collector_addr")])
+def test_telemetry_cross_checks_raise_in_both(kw, needs):
+    with pytest.raises(ValueError, match=needs):
+        RefSettings(**kw)
+    with pytest.raises(SettingsError, match=needs):
+        ServiceSettings(**kw)
+    fixed = dict(kw, **({"engine_trace": True} if needs == "engine_trace"
+                        else {"telemetry_collector_addr": "ipc:///tmp/tel.ipc"}))
+    ref, port = RefSettings(**fixed), ServiceSettings(**fixed)
+    assert all(getattr(port, f) == getattr(ref, f) for f in KEPT if f != "component_id")
+
+
+@pytest.mark.parametrize("addr", ["tls+tcp://127.0.0.1:5", "nng+tcp://127.0.0.1:5"])
+def test_telemetry_addresses_of_unported_transports_raise(addr):
+    with pytest.raises(SettingsError, match="not ported"):
+        ServiceSettings(engine_trace=True, telemetry_addr=addr)
+    with pytest.raises(SettingsError, match="not ported"):
+        ServiceSettings(telemetry_collector=True, telemetry_collector_addr=addr)
