@@ -142,7 +142,30 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    in its window. Printed: socket lines/s, lone and e2e p50/p99, trace
    events and bytes, the device's busy share and 3 longest idle gaps over
    the window, kernel 1's time in the trace beside its CUDA-event time;
-16. last, a 1 s capture over phase 7b's ``process_frames`` loop on a fresh
+16. the chip plane (phase ``mesh``, ``parallel/``): one process drives a
+   mesh that repeats ``cuda:0`` eight times, so the phase proves the
+   sharding, the ring and the reductions, not copies between GPUs. (a)
+   Ring attention at ``examples/seqparallel_config.yaml``'s widths (B 8,
+   H 4, S 2048, D 64, a PAD tail of 600 keys across the last seq shard's
+   boundary) over {seq: 4} and {data: 2, seq: 4}, fp32 and bf16, output
+   and gradients, against the one-device blockwise attention (fp32 within
+   1e-4, bf16 within 2e-2). (b) BASELINE config #5,
+   ``examples/mesh_scorer_config.yaml`` with the port's class name and
+   ``head_impl: pallas``: fit on 512 messages, 65,536 through
+   ``process_batch`` in calls of 8,192; kernel 1 launched once per data row
+   in every calibration chunk and device batch, all from graph replays;
+   scores against the one-device detector on the same weights (max
+   |delta|, no flip 1e-2 or farther from the threshold); lines/s. (c)
+   ``examples/seqparallel_config.yaml`` as written but the class name and
+   the head (``attn_impl: ring``, {data: 2, seq: 4}, dim 256, depth 4,
+   seq_len 2048): its fit (the loss must fall), then 1,024 messages;
+   scores within 2e-2 of the one-device detector with ``attn_impl:
+   flash`` on the same weights, no flip 1e-2 or farther. (d) A mesh of
+   one ({data: 1}): scores bit-equal to the one-device detector fitted on
+   the same messages. (e) A process group of one over NCCL and a localhost
+   coordinator in a subprocess: one ``all_reduce``, ``process_info``,
+   exit 0 within 120 s;
+17. last, a 1 s capture over phase 7b's ``process_frames`` loop on a fresh
    detector of its configuration, with its busy share (``frames_profile``);
 
 The LogBERT check (in phase 8, before its detector is freed):
@@ -165,6 +188,12 @@ the MLP (1024 and 32 rows), GRU (4096) and LogBERT (256) buckets, and again
 after norm calibration, int8 activation and a checkpoint restore, a replay
 is held bit-equal to the eager call on the same batch and both are timed
 (``replay_vs_eager`` lines).
+
+Phases 13–15, the three that hold the 12 ms release-wait bound, each run
+in a fresh interpreter of their own (``run_isolated``; the kernels load from
+the build cache of phase 2): the service a phase hosts shares its process
+with nothing of the phases before it, as a deployed detector shares its
+CLI process with nothing else.
 
 Each detector run resets every kernel's launch count just before and reads
 them just after (the lifecycle paths too: ``lifecycle``, ``int8w_lifecycle``
@@ -300,6 +329,30 @@ TRACE_PROFILE_S = 1.0
 TRACE_PRUNE_S = 0.2
 TRACE_MAX_CAPTURES = 2
 TRACE_RELAY_BATCH = 64
+
+# phase mesh: the chip plane on one card, whose mesh repeats cuda:0
+MESH_DEVICES = 8
+# (a) ring attention at examples/seqparallel_config.yaml's widths: B, H, S,
+# D, and a PAD tail across the last seq shard's boundary
+RING_SHAPE = (8, 4, 2048, 64)
+RING_PAD_TAIL = 600
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # max |delta|, outputs and grads
+# (b) examples/mesh_scorer_config.yaml: 512 fit messages, then 65,536 in
+# process_batch calls of max_batch
+MESH_DETECT = 65536
+MESH_CALL = 8192
+# max |delta score| against one device: bf16 operands and fp32 sums on both
+# sides; only the rows' GEMM shapes and the head's split differ
+MESH_TOL = 1e-3
+# (c) examples/seqparallel_config.yaml as written: a fit, then 1,024 messages
+MESH_SEQ_DETECT = 1024
+MESH_SEQ_CALL = 256
+MESH_SEQ_TOL = 2e-2        # the JAX package's sharded bound (tests/test_parallel.py)
+# (d) a mesh of one, bit-equal to one device
+MESH_ONE_DETECT = 4096
+# narrowed widths for a CPU rehearsal (tests/test_torch_chip_smoke.py)
+MESH_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
+MESH_SEQ_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
 
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
@@ -550,13 +603,13 @@ def phase_build() -> dict:
 
 
 # -- phase 3 -----------------------------------------------------------------
-def _lse_inputs(n, c, d, dtype, gen):
+def _lse_inputs(n, c, d, dtype, gen, device: str = "cuda"):
     if (n, c, d) == (16, 16, 32):
-        h = torch.full((n, d), 50.0, device="cuda")
-        e = torch.cat([torch.full((8, d), 2.0), torch.full((8, d), -2.0)]).cuda()
+        h = torch.full((n, d), 50.0, device=device)
+        e = torch.cat([torch.full((8, d), 2.0), torch.full((8, d), -2.0)]).to(device)
     else:
-        h = torch.randn(n, d, device="cuda", generator=gen)
-        e = torch.randn(c, d, device="cuda", generator=gen)
+        h = torch.randn(n, d, device=device, generator=gen)
+        e = torch.randn(c, d, device=device, generator=gen)
     return h.to(dtype), e.to(dtype)
 
 
@@ -580,33 +633,43 @@ def lse_library(h: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
                       for sl in row_chunks(h.shape[0], LSE_LIBRARY_ROWS)])
 
 
+def check_lse(n, c, d, dtype, gen, device: str = "cuda") -> dict:
+    """Kernel 1's wrapper at [N, D] x [C, D] in ``dtype`` against its plain
+    version on the same seeded inputs: the check's row (``ok`` False past
+    the tolerance)."""
+    h, e = _lse_inputs(n, c, d, dtype, gen, device)
+    got = scorehead.candidate_lse(h, e)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    want = lse_plain(h, e)
+    finite = bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        tol = "rtol 1e-5, atol 1e-4"
+        ok = finite and torch.allclose(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        # the same low-precision operands on both sides; products are
+        # exact in fp32, only the order of summation differs
+        tol = "atol 2e-3"
+        ok = finite and err <= 2e-3
+    on_card = device == "cuda"
+    return dict(kernel="candidate_lse", shape=[n, c, d], dtype=_dtype_name(dtype),
+                variant=scorehead.variant(n, c, d, dtype) if on_card else None,
+                splits=(scorehead._library().dm_candidate_lse_splits(
+                    n, c, d, scorehead._DTYPE_CODES[dtype]) if on_card else None),
+                max_abs_err=err, tol=tol, finite=finite, ok=bool(ok))
+
+
 def phase_kernel_checks() -> float:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for n, c, d, dtype in LSE_CASES:
-        h, e = _lse_inputs(n, c, d, dtype, gen)
-        got = scorehead.candidate_lse(h, e)
-        torch.cuda.synchronize()
-        want = lse_plain(h, e)
-        finite = bool(torch.isfinite(got).all())
-        err = (got - want).abs().max().item()
-        if dtype == torch.float32:
-            tol = "rtol 1e-5, atol 1e-4"
-            ok = finite and torch.allclose(got, want, rtol=1e-5, atol=1e-4)
-        else:
-            # the same low-precision operands on both sides; products are
-            # exact in fp32, only the order of summation differs
-            tol = "atol 2e-3"
-            ok = finite and err <= 2e-3
-        taken = scorehead.variant(n, c, d, dtype)
-        emit("kernel_check", kernel="candidate_lse", shape=[n, c, d],
-             dtype=_dtype_name(dtype), variant=taken,
-             splits=scorehead._library().dm_candidate_lse_splits(
-                 n, c, d, scorehead._DTYPE_CODES[dtype]),
-             max_abs_err=err, tol=tol, finite=finite, ok=bool(ok))
-        if not ok:
-            raise AssertionError(f"candidate_lse disagrees at {(n, c, d, dtype)}: {err}")
-        worst = max(worst, err)
+        row = check_lse(n, c, d, dtype, gen)
+        emit("kernel_check", **row)
+        if not row["ok"]:
+            raise AssertionError(f"candidate_lse disagrees at {(n, c, d, dtype)}: "
+                                 f"{row['max_abs_err']}")
+        worst = max(worst, row["max_abs_err"])
     return worst
 
 
@@ -1569,10 +1632,15 @@ def service_files(tmp: Path, name: str, config: dict, **settings) -> Path:
 def _outputs_connected(engine) -> bool:
     """Whether every output socket of ``engine`` has a connected peer: with
     ``IMMEDIATE`` set, a socket is writable only then."""
+    return all(_writable(sock) for sock in engine._out_socks)
+
+
+def _writable(sock) -> bool:
+    """Whether a dialing socket has a live connection (``IMMEDIATE``: it is
+    writable only then)."""
     import zmq
 
-    return all(sock._sock.getsockopt(zmq.EVENTS) & zmq.POLLOUT
-               for sock in engine._out_socks)
+    return bool(sock._sock.getsockopt(zmq.EVENTS) & zmq.POLLOUT)
 
 
 def _lone_latencies(sender, sink, msgs) -> list:
@@ -1677,6 +1745,12 @@ def phase_service(smi: str, frames_lines_per_s: float, device: str = "cuda") -> 
         # the restarted engine dials its output in the background, and an
         # alert sent before the dial completes is dropped (drop mode)
         _wait(lambda: _outputs_connected(service.engine), 10, "the output to reconnect")
+        # the stopped engine's input socket is gone: a message the old
+        # connection takes before it notices is lost with it, so the
+        # restarted engine is reached through a connection of its own
+        sender.close()
+        sender = factory.create_output(settings.engine_addr, buffer_size=1000)
+        _wait(lambda: _writable(sender), 10, "a connection to the restarted engine")
         restarted = _lone_latencies(sender, sink, lone[SERVICE_LONE:])[0]
         t0 = time.perf_counter()
         _http("POST", port, "/admin/shutdown")
@@ -3023,6 +3097,431 @@ def capture_events(last: dict) -> list:
     return json.loads((Path(last["dir"]) / profiling.TRACE_FILE).read_text())["traceEvents"]
 
 
+# -- phase mesh (16) -----------------------------------------------------------
+def example_block(name: str, **changes) -> dict:
+    """The detector block of ``examples/<name>``, renamed for the port
+    (``method_type: torch_scorer``), with the fused head and ``changes``."""
+    import yaml
+
+    doc = yaml.safe_load((Path(__file__).resolve().parent / "examples" / name).read_text())
+    return dict(doc["detectors"]["JaxScorerDetector"], method_type="torch_scorer",
+                head_impl="pallas", **changes)
+
+
+def _repeated_device(device: str) -> torch.device:
+    return torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+
+
+def phase_mesh(smi: str, device: str = "cuda") -> dict:
+    """The chip plane (``parallel/``) as one process drives it, on a mesh
+    that repeats one device ``MESH_DEVICES`` times (``mesh.local_devices``
+    replaced for the phase): (a) ring attention against the one-device
+    blockwise attention, (b) BASELINE config #5, (c) the sequence-parallel
+    example, (d) a mesh of one, (e) a process group of one."""
+    ring = mesh_ring(device)
+    with _mesh_devices(device, MESH_DEVICES):
+        scorer = mesh_scorer(smi, device)
+    _empty_cache(device)
+    with _mesh_devices(device, MESH_DEVICES):
+        seqpar = mesh_seqparallel(smi, device)
+    _empty_cache(device)
+    with _mesh_devices(device, 1):
+        one = mesh_of_one(device)
+    boot = mesh_bootstrap(device)
+    result = dict(card=smi, ring=ring, scorer=scorer, seqparallel=seqpar, one=one,
+                  bootstrap=boot,
+                  launches=scorer["launches"] + seqpar["launches"],
+                  replayed_launches={"candidate_lse": scorer["replayed_launches"]["candidate_lse"]
+                                     + seqpar["replayed_launches"]["candidate_lse"]},
+                  variants=dict(Counter(scorer["variants"]) + Counter(seqpar["variants"])),
+                  head_max_abs_err=max(r["max_abs_err"] for r in
+                                       scorer["head_checks"] + seqpar["head_checks"]))
+    emit("mesh", **{k: v for k, v in result.items()
+                    if k not in ("ring", "scorer", "seqparallel", "one", "bootstrap")})
+    return result
+
+
+class _mesh_devices:
+    """Inside: ``parallel.mesh.local_devices`` gives the one device ``n``
+    times (the mesh of a card that repeats ``cuda:0``)."""
+
+    def __init__(self, device: str, n: int):
+        self.devices = [_repeated_device(device)] * n
+
+    def __enter__(self):
+        from detectmateservice_tpu_torch.parallel import mesh as mesh_mod
+
+        self.mesh_mod, self.saved = mesh_mod, mesh_mod.local_devices
+        mesh_mod.local_devices = lambda device_type="cuda": list(self.devices)
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh_mod.local_devices = self.saved
+        return False
+
+
+def _empty_cache(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_ring(device: str) -> list:
+    """(a): ring attention over {seq: 4} and {data: 2, seq: 4} of the
+    repeated device, fp32 and bf16, output and gradients, against the
+    port's one-device blockwise attention on the same inputs."""
+    from detectmateservice_tpu_torch.ops.attention import blockwise_attention
+    from detectmateservice_tpu_torch.parallel import make_mesh, ring_attention
+
+    dev = _repeated_device(device)
+    b, h, s, d = RING_SHAPE
+    block = min(128, s)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(0)
+        q, k, v, g = (torch.randn(b, h, s, d, generator=gen) for _ in range(4))
+        q, k, v = (t.to(dev, dtype).requires_grad_(True) for t in (q, k, v))
+        g = g.to(dev)
+        valid = (torch.arange(s) < s - RING_PAD_TAIL).expand(b, s).to(dev)
+
+        def run(fn):
+            for t in (q, k, v):
+                t.grad = None
+            out = fn()
+            (out.float() * g).sum().backward()
+            return [out.detach()] + [t.grad.detach() for t in (q, k, v)]
+
+        want = run(lambda: blockwise_attention(q, k, v, block_size=block,
+                                               mask=valid[:, None, None, :]))
+        plain_ms = time_ms(lambda: blockwise_attention(q, k, v, block_size=block,
+                                                       mask=valid[:, None, None, :]),
+                           reps=5, warmup=1) if device == "cuda" else None
+        for shape, batch_axis in (({"seq": 4}, None), ({"data": 2, "seq": 4}, "data")):
+            mesh = make_mesh(shape, devices=[dev] * int(np.prod(list(shape.values()))))
+            got = run(lambda: ring_attention(q, k, v, mesh, kv_valid=valid,
+                                             batch_axis=batch_axis))
+            errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(got, want)]
+            row = dict(dtype=_dtype_name(dtype), mesh=shape, shape=list(RING_SHAPE),
+                       pad_tail=RING_PAD_TAIL, max_abs_err=dict(zip(("out", "dq", "dk", "dv"),
+                                                                    errs)),
+                       tolerance=RING_TOL[dtype],
+                       ring_ms=(time_ms(lambda: ring_attention(
+                           q, k, v, mesh, kv_valid=valid, batch_axis=batch_axis),
+                           reps=5, warmup=1) if device == "cuda" else None),
+                       blockwise_ms=plain_ms)
+            emit("mesh_ring", **row)
+            if not all(np.isfinite(errs)) or max(errs) > RING_TOL[dtype]:
+                raise AssertionError(f"ring attention on {shape} ({dtype}) is {errs} from the "
+                                     f"blockwise attention, over {RING_TOL[dtype]}")
+            rows.append(row)
+    return rows
+
+
+def _mesh_yardstick(det, cfg: dict, tokens: np.ndarray, threshold: float, call: int,
+                    **changes) -> tuple:
+    """The one-device port detector of ``cfg`` (mesh removed, ``changes``
+    applied) on the mesh detector's weights, norm statistics and
+    threshold: its scores of ``tokens`` (uncounted) and the detector."""
+    one_cfg = {k: v for k, v in cfg.items() if k != "mesh_shape"}
+    one_cfg.update(data_use_training=0, score_threshold=threshold, **changes)
+    plain = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": one_cfg}})
+    plain.load_params(det._sharded.state_dict())
+    if det._norm_mu is not None:
+        plain._set_norm(det._norm_mu, det._norm_sigma)
+    with uncounted(plain):
+        scores = np.concatenate([plain.score_tokens(tokens[i:i + call])
+                                 for i in range(0, len(tokens), call)])
+    return scores, plain
+
+
+def _decision_gap(mesh_scores: np.ndarray, one_scores: np.ndarray, threshold: float) -> dict:
+    """Max |delta| and the decisions that differ, each with its distance
+    from the threshold under the one-device scores."""
+    flips = np.flatnonzero((mesh_scores > threshold) != (one_scores > threshold))
+    return {"max_abs_delta": float(np.abs(mesh_scores - one_scores).max()),
+            "flips": int(len(flips)),
+            "flip_distances": [float(abs(one_scores[i] - threshold)) for i in flips]}
+
+
+class _head_shapes:
+    """Inside: the (N, C, D, dtype) of every call the scorers make to kernel
+    1's wrapper (a CUDA graph's replays launch the shapes of its capture,
+    so these are every shape the path launches)."""
+
+    def __enter__(self):
+        from detectmateservice_tpu_torch.models import base
+
+        self.base, self.saved, self.shapes = base, base.candidate_lse, set()
+
+        def recording(h, e):
+            self.shapes.add((int(h.shape[0]), int(e.shape[0]), int(h.shape[1]), h.dtype))
+            return self.saved(h, e)
+
+        base.candidate_lse = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.base.candidate_lse = self.saved
+        return False
+
+
+def mesh_head_checks(shapes, device: str) -> list:
+    """Kernel 1 against its plain version at each shape a mesh path gave it
+    (``check_lse`` on seeded inputs, the splits and row tiles of that N)."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = [check_lse(n, c, d, dtype, gen, device)
+            for n, c, d, dtype in sorted(shapes, key=lambda t: (t[0], t[1], t[2], str(t[3])))]
+    _empty_cache(device)
+    return rows
+
+
+def mesh_scorer(smi: str, device: str) -> dict:
+    """(b): ``examples/mesh_scorer_config.yaml`` (BASELINE config #5) on
+    the repeated device: fit on 512 messages, 65,536 through
+    ``process_batch``; against the one-device detector on the same weights."""
+    changes = dict(MESH_CPU_CHANGES, device="cpu") if device != "cuda" else {}
+    cfg = example_block("mesh_scorer_config.yaml", **changes)
+    with _head_shapes() as seen:
+        det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": cfg}})
+        t0 = time.perf_counter()
+        det.setup_io()
+        setup_s = time.perf_counter() - t0
+        dp = int(cfg["mesh_shape"]["data"])
+        if (det._device_label != f"mesh(data={dp})" or det._obs_backend != "mesh"
+                or det._host_scorer is not None or len(det._warm.rows) != dp):
+            raise AssertionError(f"mesh mode: label {det._device_label}, backend "
+                                 f"{det._obs_backend}, {len(det._warm.rows)} row warm sets")
+        fit_msgs, _ = make_messages(cfg["data_use_training"], anomaly_rate=0.0)
+        detect_msgs, anomalies = make_messages(MESH_DETECT, anomaly_rate=0.01, seed=1)
+
+        # the main path: launch counts 0 just before, read just after
+        reset_launches()
+        replays0 = replayed(det)
+        t0 = time.perf_counter()
+        assert det.process_batch(fit_msgs) == []
+        det._finish_fit(wait=True)
+        fit_s = time.perf_counter() - t0
+        alerts, detect_s = _stream(det, detect_msgs, MESH_CALL)
+        counts = read_launches()
+        variants = read_variants()["candidate_lse"]
+        graph = replay_delta(det, replays0)
+
+    # kernel 1 once per data row in every calibration chunk and device batch
+    n_fit = cfg["data_use_training"]
+    n_cal = (max(16, n_fit // 5) if cfg.get("score_norm") == "position" and n_fit >= 64
+             else n_fit)
+    calib_chunks = -(-n_cal // min(32, cfg["max_batch"]))   # the train bucket
+    device_batches = det.path_counts["device"]
+    expected = (calib_chunks + device_batches) * dp
+    threshold = det._threshold
+    by_id = _alerts_by_id(alerts, threshold)
+    tokens, ok = det._featurize_raw_batch(detect_msgs)
+    mesh_scores = det.score_tokens(tokens)
+    one_scores, one = _mesh_yardstick(det, cfg, tokens, threshold, MESH_CALL)
+    gap = _decision_gap(mesh_scores, one_scores, threshold)
+    checks = replay_vs_eager(det, "mesh_scorer", "fitted", [MESH_CALL],
+                             detect_msgs) if device == "cuda" else []
+    head_rows = mesh_head_checks(seen.shapes, device)
+    result = dict(
+        card=smi, config="examples/mesh_scorer_config.yaml", mesh=det._device_label,
+        shards_of=str(det._device), setup_s=setup_s, fit_s=fit_s, detect_s=detect_s,
+        lines_per_s=MESH_DETECT / detect_s, n_detect=MESH_DETECT, call_size=MESH_CALL,
+        threshold=threshold, alerts=len(by_id), anomalies=len(anomalies),
+        recall=len(anomalies & set(by_id)) / max(1, len(anomalies)),
+        launches=counts["candidate_lse"], expected_launches=expected,
+        calibration_chunks=calib_chunks, device_batches=device_batches, launch_counts=counts,
+        variants=variants, replayed_launches=graph, vs_one_device=gap, tolerance=MESH_TOL,
+        head_checks=head_rows,
+        alerts_match=sorted(by_id) == sorted(str(i) for i in np.flatnonzero(
+            ok & (mesh_scores > threshold))),
+        captures=det._warm.captures, replay_vs_eager=checks)
+    emit("mesh_scorer", **result)
+    failures = []
+    if counts["candidate_lse"] != expected or counts["flash_forward"] or counts["flash_dq"] \
+            or counts["flash_dkv"]:
+        failures.append(f"launches {counts}, expected {expected} of kernel 1 "
+                        f"(({calib_chunks} + {device_batches}) x {dp} rows)")
+    if device == "cuda":
+        try:
+            check_head_variants(variants, "wgmma_tma_d128_", counts["candidate_lse"], "mesh")
+            check_replays(graph, {"candidate_lse": counts["candidate_lse"]}, "mesh")
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if not gap["max_abs_delta"] <= MESH_TOL:
+        failures.append(f"scores {gap['max_abs_delta']} from one device, over {MESH_TOL}")
+    if gap["flip_distances"] and max(gap["flip_distances"]) >= 1e-2:
+        failures.append(f"decisions apart from one device beyond 1e-2: {gap}")
+    failures += [f"kernel 1 disagrees with its plain version: {r}"
+                 for r in head_rows if not r["ok"]]
+    if not np.isfinite(threshold) or not np.isfinite(mesh_scores).all():
+        failures.append(f"threshold {threshold} or scores not finite")
+    if not result["alerts_match"]:
+        failures.append("the stream's alerts are not the mesh's own decisions")
+    del one
+    if failures:
+        raise AssertionError(f"phase mesh (b) failed: {failures}")
+    return result
+
+
+def mesh_seqparallel(smi: str, device: str) -> dict:
+    """(c): ``examples/seqparallel_config.yaml`` as written (``attn_impl:
+    ring`` over {data: 2, seq: 4}) on the repeated device: the fit, then
+    1,024 messages; against the one-device detector with ``attn_impl:
+    flash`` on the same weights."""
+    changes = dict(MESH_SEQ_CPU_CHANGES, device="cpu") if device != "cuda" else {}
+    cfg = example_block("seqparallel_config.yaml", **changes)
+    with _head_shapes() as seen:
+        det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": cfg}})
+        t0 = time.perf_counter()
+        det.setup_io()
+        setup_s = time.perf_counter() - t0
+        dp = int(cfg["mesh_shape"]["data"])
+        losses = []
+        train_step = det._sharded.train_step
+
+        def recording(*args, **kwargs):
+            loss = train_step(*args, **kwargs)
+            losses.append(loss)
+            return loss
+
+        det._sharded.train_step = recording
+        fit_msgs, _ = make_messages(cfg["data_use_training"], anomaly_rate=0.0)
+        detect_msgs, anomalies = make_messages(MESH_SEQ_DETECT, anomaly_rate=0.01, seed=1)
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        replays0 = replayed(det)
+        t0 = time.perf_counter()
+        assert det.process_batch(fit_msgs) == []
+        det._finish_fit(wait=True)
+        fit_s = time.perf_counter() - t0
+        alerts, detect_s = _stream(det, detect_msgs, MESH_SEQ_CALL)
+        counts = read_launches()
+        variants = read_variants()["candidate_lse"]
+        graph = replay_delta(det, replays0)
+
+    calib_chunks = -(-cfg["data_use_training"] // min(32, cfg["max_batch"]))
+    device_batches = det.path_counts["device"]
+    expected = (calib_chunks + device_batches) * dp
+    threshold = det._threshold
+    by_id = _alerts_by_id(alerts, threshold)
+    tokens, _ = det._featurize_raw_batch(detect_msgs)
+    mesh_scores = np.concatenate([det.score_tokens(tokens[i:i + MESH_SEQ_CALL])
+                                  for i in range(0, len(tokens), MESH_SEQ_CALL)])
+    one_scores, one = _mesh_yardstick(det, cfg, tokens, threshold, MESH_SEQ_CALL,
+                                      attn_impl="flash")
+    gap = _decision_gap(mesh_scores, one_scores, threshold)
+    head_rows = mesh_head_checks(seen.shapes, device)
+    head = max(1, min(8, len(losses) // 4))
+    result = dict(
+        card=smi, config="examples/seqparallel_config.yaml", mesh=det._device_label,
+        cuts="none", setup_s=setup_s, fit_s=fit_s, train_steps=len(losses),
+        loss_first=float(np.mean(losses[:head])), loss_last=float(np.mean(losses[-head:])),
+        detect_s=detect_s, lines_per_s=MESH_SEQ_DETECT / detect_s, n_detect=MESH_SEQ_DETECT,
+        threshold=threshold, alerts=len(by_id), anomalies=len(anomalies),
+        recall=len(anomalies & set(by_id)) / max(1, len(anomalies)),
+        launches=counts["candidate_lse"], expected_launches=expected,
+        calibration_chunks=calib_chunks, device_batches=device_batches, launch_counts=counts,
+        variants=variants, replayed_launches=graph, vs_one_device_flash=gap,
+        tolerance=MESH_SEQ_TOL, head_checks=head_rows,
+        peak_mem_gib=(torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+                      else None))
+    emit("mesh_seqparallel", **result)
+    failures = []
+    if counts["candidate_lse"] != expected or counts["flash_forward"] or counts["flash_dq"] \
+            or counts["flash_dkv"]:
+        failures.append(f"launches {counts}, expected {expected} of kernel 1 and no flash "
+                        f"kernel (the ring runs in torch ops)")
+    if device == "cuda":
+        try:
+            check_head_variants(variants, "wgmma_tma_d256_", counts["candidate_lse"],
+                                "mesh seqparallel")
+            check_replays(graph, {"candidate_lse": counts["candidate_lse"]}, "mesh seqparallel")
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if not gap["max_abs_delta"] <= MESH_SEQ_TOL:
+        failures.append(f"scores {gap['max_abs_delta']} from the flash detector, over "
+                        f"{MESH_SEQ_TOL}")
+    if gap["flip_distances"] and max(gap["flip_distances"]) >= 1e-2:
+        failures.append(f"decisions apart from the flash detector beyond 1e-2: {gap}")
+    failures += [f"kernel 1 disagrees with its plain version: {r}"
+                 for r in head_rows if not r["ok"]]
+    if not losses or not result["loss_last"] < result["loss_first"]:
+        failures.append(f"the fit's loss did not fall: {losses[:3]} ... {losses[-3:]}")
+    del one
+    if failures:
+        raise AssertionError(f"phase mesh (c) failed: {failures}")
+    return result
+
+
+def mesh_of_one(device: str) -> dict:
+    """(d): ``{data: 1}`` on the device: the mesh detector and the one-device
+    detector of the same config fit on the same messages and must score
+    bit-equal."""
+    changes = dict(MESH_CPU_CHANGES, device="cpu") if device != "cuda" else {}
+    cfg = example_block("mesh_scorer_config.yaml", **changes)
+    fit_msgs, _ = make_messages(cfg["data_use_training"], anomaly_rate=0.0)
+    detect_msgs, _ = make_messages(MESH_ONE_DETECT, anomaly_rate=0.01, seed=1)
+    dets = {}
+    for name, shape in (("mesh", {"data": 1}), ("one", None)):
+        block = dict(cfg, mesh_shape=shape, async_fit=False)
+        det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": block}})
+        det.setup_io()
+        with uncounted(det):
+            assert det.process_batch(fit_msgs) == []
+        dets[name] = det
+    tokens, _ = dets["one"]._featurize_raw_batch(detect_msgs)
+    with uncounted(dets["one"]):
+        want = dets["one"].score_tokens(tokens)
+    got = dets["mesh"].score_tokens(tokens)
+    result = dict(mesh=dets["mesh"]._device_label, rows=len(tokens),
+                  bit_equal=bool(np.array_equal(got, want)),
+                  threshold_equal=dets["mesh"]._threshold == dets["one"]._threshold,
+                  max_abs_diff=float(np.abs(got - want).max()))
+    emit("mesh_of_one", **result)
+    if not (result["bit_equal"] and result["threshold_equal"]):
+        raise AssertionError(f"a mesh of one is not the one device: {result}")
+    return result
+
+
+def mesh_bootstrap(device: str) -> dict:
+    """(e): a process group of one (NCCL on the card, gloo on the CPU) over
+    a localhost coordinator, in a subprocess: one all_reduce,
+    ``process_info``, the group destroyed, exit 0 within 120 s."""
+    code = (
+        "import json, sys, torch\n"
+        "import torch.distributed as dist\n"
+        "from detectmateservice_tpu_torch.parallel import distributed\n"
+        "class S:\n"
+        "    coordinator_address = '127.0.0.1:' + sys.argv[1]\n"
+        "    num_processes = 1\n"
+        "    process_id = 0\n"
+        "assert distributed.initialize_from_settings(S(), device_type=sys.argv[2])\n"
+        "dev = 'cuda:0' if sys.argv[2] == 'cuda' else 'cpu'\n"
+        "t = torch.full((4,), 2.0, device=dev)\n"
+        "dist.all_reduce(t)\n"
+        "ok = float(t.sum()) == 8.0\n"
+        "info = dict(distributed.process_info(), backend=dist.get_backend(), all_reduce=ok)\n"
+        "dist.destroy_process_group()\n"
+        "print(json.dumps(info), flush=True)\n")
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, str(_free_port()), device],
+                          cwd=root, capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=str(root)))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    info = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    result = dict(returncode=proc.returncode, seconds=seconds, **info)
+    emit("mesh_bootstrap", **result)
+    want_backend = "nccl" if device == "cuda" else "gloo"
+    if proc.returncode != 0 or not info.get("all_reduce") or info.get("backend") != want_backend \
+            or info.get("process_count") != 1 or not info.get("initialized"):
+        raise AssertionError(f"the process group of one failed: {result} "
+                             f"{proc.stderr[-2000:]}")
+    return result
+
+
 def phase_frames_profile(smi: str, device: str = "cuda") -> dict:
     """A 1 s capture over phase 7b's path, taken last: a fresh detector of
     phase 7b's configuration through ``bench_torch.drive`` (fit, warm-up,
@@ -3471,6 +3970,39 @@ def _trace_stream(tmp, smi, lse_ms, device, detector, setup_s, stages, alerts, f
     return result
 
 
+def run_isolated(name: str, *args) -> dict:
+    """``name(*args)`` of this script in a fresh interpreter (kernels load
+    from the build cache phase 2 filled): its lines pass through, its
+    result comes back as JSON, and its failure fails the run. The service
+    a phase hosts then shares its process with nothing of the phases
+    before it."""
+    code = ("import json, sys, torch, chip_smoke\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            f"result = chip_smoke.{name}(*json.loads(sys.argv[1]))\n"
+            "print('RESULT ' + json.dumps(result, default=lambda v: getattr(v, 'item', "
+            "lambda: str(v))()), flush=True)\n")
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(args)], cwd=root,
+                            stdout=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(root)))
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith("RESULT "):
+                result = json.loads(line[len("RESULT "):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    if rc != 0 or result is None:
+        raise AssertionError(f"{name} failed in its own interpreter (exit {rc})")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3501,11 +4033,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     service = phase_service(_smi, frames["lines_per_s"])
     torch.cuda.empty_cache()
-    coalesce = phase_coalesce(_smi)
-    torch.cuda.empty_cache()
-    lifecycle = phase_lifecycle(_smi)
-    torch.cuda.empty_cache()
-    trace = phase_trace(_smi, lse_times[(1024, 128)]["ms"])
+    # the phases that hold the release-wait bound host the detector's
+    # service in an interpreter of its own, as a deployment does
+    coalesce = run_isolated("phase_coalesce", _smi)
+    lifecycle = run_isolated("phase_lifecycle", _smi)
+    trace = run_isolated("phase_trace", _smi, lse_times[(1024, 128)]["ms"])
+    mesh = phase_mesh(_smi)
     torch.cuda.empty_cache()
     phase_frames_profile(_smi)
     logbert_lc = logbert["lifecycle"]
@@ -3520,7 +4053,7 @@ def main() -> int:
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]
                      + service["launches"] + coalesce["launches"] + lifecycle["launches"]
                      + int8_lc["launches"] + logbert_lc["launch_counts"]["candidate_lse"]
-                     + trace["launches"]),
+                     + trace["launches"] + mesh["launches"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
@@ -3529,7 +4062,7 @@ def main() -> int:
                              "lifecycle": lifecycle["launches"],
                              "int8w_lifecycle": int8_lc["launches"],
                              "logbert_lifecycle": logbert_lc["launch_counts"]["candidate_lse"],
-                             "trace": trace["launches"]},
+                             "trace": trace["launches"], "mesh": mesh["launches"]},
         # every launch of the serving paths ran as part of a CUDA-graph
         # replay; on the lifecycle paths the candidate's shadow chunks run
         # op by op
@@ -3544,8 +4077,9 @@ def main() -> int:
                              "int8w_lifecycle": int8_lc["replayed_launches"]["candidate_lse"],
                              "logbert_lifecycle":
                                  logbert_lc["replayed_launches"]["candidate_lse"],
-                             "trace": trace["replayed_launches"]["candidate_lse"]},
-        "max_abs_err": lse_err,
+                             "trace": trace["replayed_launches"]["candidate_lse"],
+                             "mesh": mesh["replayed_launches"]["candidate_lse"]},
+        "max_abs_err": max(lse_err, mesh["head_max_abs_err"]),
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
         "bound_ms": mlp_row["bound_ms"],
@@ -3563,7 +4097,7 @@ def main() -> int:
                                 "lifecycle": lifecycle["variants"],
                                 "int8w_lifecycle": int8_lc["variants"],
                                 "logbert_lifecycle": logbert_lc["variants"]["candidate_lse"],
-                                "trace": trace["variants"]},
+                                "trace": trace["variants"], "mesh": mesh["variants"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],

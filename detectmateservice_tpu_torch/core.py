@@ -16,8 +16,9 @@ a clean shutdown saves a checkpoint to ``checkpoint_dir``.
 At load, the component gets the service's metric labels, health monitor and
 metric factories, and a component with ``pending_count`` and
 ``drained_total`` gets the watchdog's ``device_inflight`` check. The
-processor hands the engine the component's ``note_tenant`` and
-``drain_poll_ms`` (the coalescing detector's seams). The process-wide
+processor hands the engine the component's ``note_tenant``,
+``drain_poll_ms`` and ``drain_due_in_ms`` (the coalescing detector's
+seams). The process-wide
 capture ledger (``engine/device_obs.py``) is bound to the service: its
 identity, health plane (``xla_recompile_storm``, unless
 ``recompile_alert_enabled`` is off) and metric factories. A
@@ -51,6 +52,7 @@ ported (their settings raise in ``settings.py``).
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import threading
 from pathlib import Path
@@ -75,11 +77,6 @@ from .library.common.core import CoreComponent, CoreConfig
 from .settings import ServiceSettings
 from .web.server import WebServer
 
-# the status report's distributed block: one process, no global mesh
-_SINGLE_PROCESS = {"initialized": False, "process_index": 0, "process_count": 1,
-                   "local_devices": None}
-
-
 class ServiceError(Exception):
     pass
 
@@ -102,6 +99,8 @@ class LibraryComponentProcessor:
         # and the short-poll tick its deadline needs
         if callable(getattr(component, "note_tenant", None)):
             self.note_tenant = component.note_tenant
+        if callable(getattr(component, "drain_due_in_ms", None)):
+            self.drain_due_in_ms = component.drain_due_in_ms
 
     @property
     def drain_poll_ms(self):
@@ -171,6 +170,13 @@ class Service:
                  socket_factory: Optional[EngineSocketFactory] = None) -> None:
         self.settings = settings
         self.logger = self._setup_logging()
+        # several processes: join the process group BEFORE any component
+        # builds its device state; the import stays behind the check, as in
+        # the JAX package
+        if settings.coordinator_address or os.environ.get("DETECTMATE_COORDINATOR_ADDRESS"):
+            from .parallel.distributed import initialize_from_settings
+
+            initialize_from_settings(settings, self.logger)
         self._labels = dict(component_type=settings.component_type,
                             component_id=settings.component_id or "unknown")
         self._service_exit_event = threading.Event()
@@ -429,8 +435,11 @@ class Service:
 
     # -- admin verbs ----------------------------------------------------
     def status(self) -> Dict[str, Any]:
-        """The status report: the JAX package's keys, with the
-        single-process ``distributed`` block."""
+        """The status report: the JAX package's keys; the ``distributed``
+        block is this process's place among the processes
+        (``parallel/distributed.py``, importless without a coordinator)."""
+        from .parallel.distributed import process_info
+
         return {
             "status": {
                 "component_type": self.settings.component_type,
@@ -438,7 +447,7 @@ class Service:
                 "running": self.engine.running,
                 "health": self.health.state,
             },
-            "distributed": dict(_SINGLE_PROCESS),
+            "distributed": process_info(),
             "settings": self.settings.to_dict(),
             "configs": self.config_manager.get() if self.config_manager else {},
         }

@@ -411,8 +411,11 @@ def _hbm_reader(device, kind: str) -> Callable[[], float]:
 
 def export_hbm_gauges(labels: Dict[str, str], device, metrics) -> int:
     """Export ``device_hbm_bytes{device,kind=in_use|limit}`` for ``device``
-    (a ``torch.device``), read at scrape time. Returns how many devices
-    export: 0 for a CPU device or without metric factories."""
+    (a ``torch.device``, or a list of them: a mesh's distinct devices),
+    read at scrape time. Returns how many devices export: CPU devices, and
+    every device without metric factories, do not."""
+    if isinstance(device, (list, tuple)):
+        return sum(export_hbm_gauges(labels, d, metrics) for d in device)
     if metrics is None or getattr(device, "type", None) != "cuda":
         return 0
     key = (tuple(sorted(labels.items())), str(device))

@@ -31,9 +31,11 @@ The port's copy of ``detectmateservice_tpu/engine/engine.py``:
   wire frames instead (fused-frame mode: expansion and featurization happen
   inside it);
 * while the processor holds pending work (``pending_count() > 0``) the loop
-  polls with a short timeout and calls ``drain_ready`` on each tick; the
-  blocking ``flush`` runs only when the input goes truly idle, and
-  ``flush_final`` when the loop stops;
+  polls with a short timeout and calls ``drain_ready`` on each tick; a
+  processor with ``drain_due_in_ms`` (a coalescer's next due time) has the
+  poll end when its held rows fall due, not up to a tick later (the JAX
+  engine polls at the tick only); the blocking ``flush`` runs only when the
+  input goes truly idle, and ``flush_final`` when the loop stops;
 * a chunk whose processing raises is re-dispatched one message at a time
   (poison isolation): healthy messages complete, and one that fails every
   one of its ``dlq_max_attempts`` attempts is counted and dropped;
@@ -55,6 +57,7 @@ dead-letter queue are not ported; their settings raise in ``settings.py``.
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 from collections import deque
@@ -505,6 +508,7 @@ class Engine:
         # a short-poll tick is not idleness: drain only what is already
         # host-readable, never wait on the device while traffic queues
         drain_fn = getattr(self.processor, "drain_ready", None)
+        due_fn = getattr(self.processor, "drain_due_in_ms", None) if pending_fn else None
         base_timeout = self.settings.engine_recv_timeout
         try:
             hint = int(getattr(self.processor, "drain_poll_ms", 0) or 0)
@@ -522,6 +526,10 @@ class Engine:
                     self._run_calls()
                 if callable(pending_fn):
                     want = short_timeout if pending_fn() > 0 else base_timeout
+                    due = due_fn() if want == short_timeout and callable(due_fn) else None
+                    if due is not None:
+                        # wake when the held rows fall due, not a tick later
+                        want = max(1, min(short_timeout, math.ceil(due)))
                     if want != current_timeout:
                         self._pair_sock.recv_timeout = want
                         current_timeout = want
@@ -530,7 +538,7 @@ class Engine:
                 except TransportTimeout:
                     # a short-poll tick drains what has landed; the true idle
                     # timeout flushes
-                    fn = (drain_fn if current_timeout == short_timeout and callable(drain_fn)
+                    fn = (drain_fn if current_timeout <= short_timeout and callable(drain_fn)
                           else flush_fn)
                     if callable(fn):
                         try:

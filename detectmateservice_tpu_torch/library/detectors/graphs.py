@@ -69,7 +69,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -114,12 +114,14 @@ class WarmSet:
 
     ``eager(kind, tokens)`` scores a token tensor on the device the way the
     detector serves now; ``ident(kind)`` names the weights that serve it.
-    ``owner_ok()`` says whether the calling thread may capture."""
+    ``owner_ok()`` says whether the calling thread may capture; ``lock``
+    is a lock shared with other warm sets (one is made otherwise)."""
 
     def __init__(self, device: torch.device, ledger, backend: str,
                  eager: Callable[[str, torch.Tensor], torch.Tensor],
                  ident: Callable[[str], Any],
-                 owner_ok: Callable[[], bool] = lambda: True) -> None:
+                 owner_ok: Callable[[], bool] = lambda: True,
+                 lock: Optional[threading.RLock] = None) -> None:
         self.device = device
         self.cuda = device.type == "cuda"
         self._ledger = ledger
@@ -132,8 +134,9 @@ class WarmSet:
         # one lock over captures and replays: every graph shares one pool
         # and one stream, and a replay's static buffers are its own only
         # from its input copy to the copy of its output; other threads'
-        # device work enqueues under it too (``lock``)
-        self._lock = threading.RLock()
+        # device work enqueues under it too (``lock``). Warm sets that serve
+        # one caller together (a mesh's rows) share the caller's lock
+        self._lock = lock if lock is not None else threading.RLock()
         # replays by (kind, bucket), the kernel launches they added by
         # wrapper name, and captures made
         self.replays: Dict[Tuple[str, int], int] = collections.Counter()

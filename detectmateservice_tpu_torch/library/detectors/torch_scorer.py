@@ -94,7 +94,8 @@ processing errors for its rows and emits nothing.
 
 The engine contract of the JAX detector: ``pending_count()`` (batches in
 flight, plus one while the coalescer holds rows), ``drain_poll_ms`` (the
-short-poll tick while rows are held), ``drained_total()`` (batches drained,
+short-poll tick while rows are held; the port adds ``drain_due_in_ms``, when
+the held rows fall due, which ends a tick early), ``drained_total()`` (batches drained,
 the progress counter the health watchdog pairs with it), and, once a
 Service has handed the detector its metric factories (``metrics``),
 ``detector_device_lines_total`` / ``detector_device_batches_total`` per
@@ -118,8 +119,19 @@ under ``int8w`` the gate is judged again and the warm set re-captured).
 These run on the caller's thread and enqueue under the warm set's lock
 (``graphs.py``); a failure raises, and nothing retries on the CPU.
 
-Options of the JAX detector that later slices port raise ``LibraryError``
-when set away from their defaults: ``attn_impl: ring``, ``mesh_shape``.
+**Mesh mode** (``mesh_shape``, the JAX detector's multi-chip mode): one
+process drives every device of a mesh (``parallel/``). The scorer is a
+``parallel.ShardedScorer``: batches split over the ``data`` axis, a
+logbert's weights over ``model`` per ``LOGBERT_RULES``, and ``attn_impl:
+ring`` runs its attention as a ring over the ``seq`` axis. The warm set is
+one CUDA-graph warm set per data row behind ``MeshWarmSet``; the fit trains
+every row and sums the gradients over them. As in the JAX detector, mesh
+mode has no host copy, labels its device ``mesh(data=8)`` and its capture
+ledger entries ``backend: mesh``, and refuses in-process fine-tuning and
+shadow scoring of explicit weights (a rollout installs externally trained
+checkpoints). The mesh takes every local device (``parallel/mesh.py``
+``local_devices``); a mesh that needs more raises ``ValueError`` at
+``setup_io``.
 """
 from __future__ import annotations
 
@@ -205,7 +217,7 @@ class TorchScorerDetectorConfig(CoreDetectorConfig):
     # batches of at most this many rows score on the CPU copy of the module
     host_score_max_batch: int = 128
     device: Optional[str] = None          # None = "cuda:0"; "cuda:N" | "cpu"
-    mesh_shape: Optional[Dict[str, int]] = None  # multi-device: a later slice
+    mesh_shape: Optional[Dict[str, int]] = None  # e.g. {"data": 8}: mesh mode
     dtype: str = "auto"                   # "auto" = bfloat16; "int8w" = int8 weights
     seed: int = 0
 
@@ -362,13 +374,18 @@ class _BatchCoalescer:
         heads = [q[0][0] for q in self._q.values() if q]
         return 0.0 if not heads else max(0.0, now - min(heads))
 
-    def due(self, now: float) -> bool:
-        """True once the oldest row's wait reaches 0.75 of the deadline: one
-        drain tick (deadline/4) early, so the wait lands at about the
+    def due_in_s(self, now: float) -> Optional[float]:
+        """Seconds until the held rows fall due (0 once they are), None when
+        none is held: the oldest row falls due at 0.75 of the deadline, one
+        drain tick (deadline/4) early, so its wait lands at about the
         budget, not a tick past it."""
         if not self._total:
-            return False
-        return self.oldest_age(now) >= self.deadline_s * 0.75
+            return None
+        return max(0.0, self.deadline_s * 0.75 - self.oldest_age(now))
+
+    def due(self, now: float) -> bool:
+        """True once the held rows fall due (``due_in_s``)."""
+        return self.due_in_s(now) == 0.0
 
     def held_by_tenant(self) -> Dict[str, int]:
         """Held rows per tenant (the anonymous tenant as ``"default"``)."""
@@ -462,6 +479,10 @@ class TorchScorerDetector(CoreDetector):
         self._model: Optional[torch.nn.Module] = None
         self._optimizer: Optional[torch.optim.Optimizer] = None
         self._device: Optional[torch.device] = None
+        # mesh mode: the sharded scorer (it owns the weights, the optimizer
+        # and the warm set) and the device label its metrics carry
+        self._sharded = None
+        self._device_label: Optional[str] = None
         # seeds one generator per train step (the JAX detector splits
         # its PRNG key per step)
         self._step_seeds: Optional[torch.Generator] = None
@@ -572,16 +593,6 @@ class TorchScorerDetector(CoreDetector):
             raise LibraryError(
                 "bucket_retire_interval_s must be >= 0 "
                 f"(got {cfg.bucket_retire_interval_s})")
-        later = {
-            "attn_impl": (cfg.model == "logbert" and cfg.attn_impl == "ring",
-                          "the multi-GPU slice"),
-            "mesh_shape": (cfg.mesh_shape is not None, "the multi-GPU slice"),
-        }
-        for field, (unported, slice_name) in later.items():
-            if unported:
-                raise LibraryError(
-                    f"{field}={getattr(cfg, field)!r} is not ported to the torch "
-                    f"detector yet ({slice_name}); use the default")
 
     # -- lifecycle ------------------------------------------------------
     def setup_io(self) -> None:
@@ -643,7 +654,13 @@ class TorchScorerDetector(CoreDetector):
         cfg = self.config
         self._validate_static_config()
         device = resolve_device(cfg.device)
-        self._obs_backend = device.type
+        mesh = None
+        if cfg.mesh_shape:
+            from ...parallel.mesh import make_mesh
+
+            mesh = make_mesh(dict(cfg.mesh_shape), device_type=device.type)
+            device = mesh.lead
+        self._obs_backend = "mesh" if mesh is not None else device.type
         # GET /admin/xla reports the live warm / retired sets beside the
         # captures they explain
         self._ledger.set_bucket_state_provider(self._bucket_state)
@@ -654,13 +671,18 @@ class TorchScorerDetector(CoreDetector):
                 scorehead.build_kernel()
             if self._flash_reachable():
                 flash.build_kernel()
-        device_obs.export_hbm_gauges(self._obs_labels(), device, self.metrics)
+        device_obs.export_hbm_gauges(
+            self._obs_labels(), mesh.distinct_devices() if mesh is not None else device,
+            self.metrics)
         scorer = self._build_scorer(device)
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
-        self._model = scorer.init_model(device, generator)
-        self._optimizer = scorer.make_optimizer(self._model)
         self._device = device
         self._step_seeds = torch.Generator().manual_seed(cfg.seed)
+        if mesh is not None:
+            self._build_sharded(scorer, mesh, generator)
+            return
+        self._model = scorer.init_model(device, generator)
+        self._optimizer = scorer.make_optimizer(self._model)
         if cfg.host_score_max_batch > 0 and self._host_scoring_possible():
             # the host copy scores through the einsum head whatever the
             # device head is, like the JAX detector's host twin
@@ -672,6 +694,21 @@ class TorchScorerDetector(CoreDetector):
                                torch.ones(cfg.seq_len, device=device))
         self._warm = WarmSet(device, self._ledger, self._obs_backend, self._eager,
                              self._graph_ident, owner_ok=self._may_capture)
+
+    def _build_sharded(self, scorer: ScorerBase, mesh, generator: torch.Generator) -> None:
+        """Mesh mode: the weights are initialized on the mesh's first device
+        from the same generator as on one device, then placed; no host copy
+        (small batches ride the mesh, as in the JAX detector)."""
+        from ...parallel.sharded import ShardedScorer, mesh_label
+
+        self._sharded = ShardedScorer(scorer, mesh=mesh, generator=generator,
+                                      owner_ok=self._may_capture, ledger=self._ledger)
+        self._device_label = mesh_label(mesh)
+        self._scorer = scorer
+        if self.config.score_norm == "position":
+            self._sharded.set_norm(np.zeros(self.config.seq_len, np.float32),
+                                   np.ones(self.config.seq_len, np.float32))
+        self._warm = self._sharded.warm
 
     def _build_scorer(self, device: torch.device) -> ScorerBase:
         """The scorer the config names, as ``jax_scorer.py`` builds it.
@@ -707,16 +744,21 @@ class TorchScorerDetector(CoreDetector):
 
     def _host_scoring_possible(self) -> bool:
         """Whether the model can score on the host CPU copy: a logbert whose
-        attention takes the flash kernels is device-only, as in the JAX
-        detector (``ring``, device-only there too, is refused at
-        construction), so its small batches ride the device path."""
-        return not self._flash_reachable()
+        attention takes the flash kernels, or runs as a ring over a mesh, is
+        device-only, as in the JAX detector, so its small batches ride the
+        device path."""
+        cfg = self.config
+        ring = cfg.model == "logbert" and cfg.attn_impl == "ring"
+        return not (self._flash_reachable() or ring)
 
     def load_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Install weights (a ``state_dict``, e.g. from
         ``models.convert.params_from_flax``) before the fit; the optimizer
         restarts from zero moments."""
         self._ensure_scorer()
+        if self._sharded is not None:
+            self._sharded.install_params(state_dict)
+            return
         self._model.load_state_dict(state_dict)
         self._optimizer = self._scorer.make_optimizer(self._model)
 
@@ -737,6 +779,11 @@ class TorchScorerDetector(CoreDetector):
         self._norm_mu, self._norm_sigma = mu, sigma
         if mu is None:
             self._norm_dev = None
+            return
+        if self._sharded is not None:
+            # each data row reads its own copy (the rows' normscore graphs)
+            self._sharded.set_norm(mu, sigma)
+            self._norm_dev = self._sharded.norm_rows
             return
         if self._norm_bufs is None:
             self._norm_bufs = (torch.empty(len(mu), device=self._device),
@@ -770,7 +817,10 @@ class TorchScorerDetector(CoreDetector):
         """Score device tokens the way the detector serves now, op by op:
         what a warm-set graph captures and replays. ``normscore`` reads the
         static norm buffers; while the int8 path serves, its state is
-        dequantized into the compute dtype here, in the call."""
+        dequantized into the compute dtype here, in the call. In mesh mode
+        every data row scores its slice (``ShardedScorer.eager``)."""
+        if self._sharded is not None:
+            return self._sharded.eager(kind, tokens)
         if kind == "token_nlls":
             return self._scorer.token_nlls(self._model, tokens)
         norm = self._norm_bufs if kind == "normscore" else None
@@ -857,6 +907,8 @@ class TorchScorerDetector(CoreDetector):
         detector's seed stream (the masked-LM mask is drawn from it)."""
         seed = int(torch.randint(0, 2**62, (1,), generator=self._step_seeds))
         generator = torch.Generator(device=self._device).manual_seed(seed)
+        if self._sharded is not None:
+            return self._sharded.train_step(batch, generator=generator)
         loss = self._scorer.train_step(self._model, self._optimizer, self._put(batch),
                                        generator=generator)
         return float(loss)
@@ -958,7 +1010,7 @@ class TorchScorerDetector(CoreDetector):
         if self._int8w:
             # training updates the float weights; the previous quantized state
             # must not serve (or calibrate) stale scores mid-fit
-            self._qstate = None
+            self._set_qstate(None)
         bs = min(cfg.train_batch_size, len(data))
         loss = float("nan")
         rng = np.random.default_rng(cfg.seed)
@@ -1030,16 +1082,17 @@ class TorchScorerDetector(CoreDetector):
                                   "rows": 0, "flips": 0, "flip_ratio": 0.0}
         threshold = float(self._threshold) if self._threshold is not None else float("inf")
         corpus = self._parity_corpus
-        qstate = quant.quantize(self._model.state_dict(),
-                                quant.linear_weight_keys(self._model))
+        if self._sharded is not None:
+            qstate = quant.quantize(self._sharded.state_dict(), self._sharded.linear_keys)
+        else:
+            qstate = quant.quantize(self._model.state_dict(),
+                                    quant.linear_weight_keys(self._model))
         float_scores = None
         if corpus is not None and len(corpus):
             float_scores = self._parity_scores(corpus)
         # tentative install, then judge the per-call int8 path that serves
         # on the same corpus
-        if self._serving is None:
-            self._serving = _ServingModule(self._scorer)
-        self._qstate = qstate
+        self._set_qstate(qstate)
         ok = True
         if float_scores is not None:
             q_scores = self._parity_scores(corpus)
@@ -1048,13 +1101,26 @@ class TorchScorerDetector(CoreDetector):
                           flip_ratio=float(flips) / max(1, len(float_scores)))
             ok = flips == 0
         if not ok:
-            self._qstate = None  # parity broke: the quantized path never serves
+            self._set_qstate(None)  # parity broke: the quantized path never serves
         else:
             report["activated"] = True
             report["gated"] = float_scores is not None
             report["bytes"] = quant.quant_stats(qstate)
         self._int8_report = report
         return report
+
+    def _set_qstate(self, qstate: Optional[Dict[str, quant.QuantLeaf]]) -> None:
+        """Install (None: clear) the int8 state that serves: the detector's
+        own, or the mesh's placed copy."""
+        if self._sharded is not None:
+            if qstate is None:
+                self._sharded.clear_quantized()
+            else:
+                self._sharded.install_quantized(qstate)
+            return
+        if qstate is not None and self._serving is None:
+            self._serving = _ServingModule(self._scorer)
+        self._qstate = qstate
 
     # -- scoring --------------------------------------------------------
     def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
@@ -1623,6 +1689,15 @@ class TorchScorerDetector(CoreDetector):
             return None
         return max(1, int(self.config.batch_deadline_ms / 4))
 
+    def drain_due_in_ms(self) -> Optional[float]:
+        """Milliseconds until the coalescer's held rows fall due (0 when
+        they are), None when it holds none: the engine's short poll ends
+        then instead of up to a tick later (``drain_poll_ms``). Engine
+        thread."""
+        co = self._coalescer
+        due = None if co is None else co.due_in_s(time.monotonic())
+        return None if due is None else due * 1e3
+
     def drained_total(self) -> int:
         """Batches drained so far: the progress counter the health watchdog
         pairs with ``pending_count`` to see a stuck device queue."""
@@ -1637,7 +1712,7 @@ class TorchScorerDetector(CoreDetector):
         if self.metrics is None:
             return
         if self._device_children is None:
-            labels = dict(self._obs_labels(), device=str(self._device))
+            labels = dict(self._obs_labels(), device=self._device_label or str(self._device))
             self._device_children = (self.metrics.DEVICE_LINES().labels(**labels),
                                      self.metrics.DEVICE_BATCHES().labels(**labels))
         lines, batches = self._device_children
@@ -1750,9 +1825,12 @@ class TorchScorerDetector(CoreDetector):
         return float(self._threshold) if self._threshold is not None else float("inf")
 
     def rollout_ready(self) -> bool:
-        """Whether a fine-tune and shadow cycle can run: fitted, with live
-        weights, and no background fit running."""
-        return self._fitted and self._fit_thread is None and self._model is not None
+        """Whether a fine-tune and shadow cycle can run: fitted, one device
+        with live weights, and no background fit running (mesh mode serves
+        hot-swaps of checkpoints but fine-tunes nothing in process, as in the
+        JAX detector)."""
+        return (self._fitted and self._fit_thread is None and self._sharded is None
+                and self._model is not None)
 
     def _refuse_during_fit(self, what: str) -> None:
         fit = self._fit_thread
@@ -1772,6 +1850,10 @@ class TorchScorerDetector(CoreDetector):
         between steps. Returns the candidate's ``(state_dict, optimizer state_dict,
         {"steps", "loss", "batch_size"})``."""
         self._ensure_scorer()
+        if self._sharded is not None:
+            raise LibraryError(
+                "continuous fine-tuning is not supported in mesh (sharded) "
+                "mode; deploy externally-trained checkpoints instead")
         self._refuse_during_fit("fine-tuning")
         cfg = self.config
         rows = np.asarray(rows, np.int32)
@@ -1823,6 +1905,10 @@ class TorchScorerDetector(CoreDetector):
         (None = live), in padded chunks of the train bucket (warm since
         setup), under an expected ``shadow`` ledger context."""
         self._ensure_scorer()
+        if self._sharded is not None and params is not None:
+            raise LibraryError(
+                "shadow scoring with explicit params is not supported in "
+                "mesh (sharded) mode")
         self._refuse_during_fit("shadow scoring")
         tokens = np.asarray(tokens, np.int32)
         n = len(tokens)
@@ -1878,6 +1964,8 @@ class TorchScorerDetector(CoreDetector):
             fit.join()
         warmed = self._resolve_warm_set(warm_set)
         t0 = time.perf_counter()
+        if self._sharded is not None:
+            return self._install_on_mesh(params, opt_state, version, warmed)
         mirror = None
         if self._host_scorer is not None:
             mirror = self._host_scorer.meta_model().to_empty(device=torch.device("cpu"))
@@ -1914,6 +2002,35 @@ class TorchScorerDetector(CoreDetector):
                 if self._int8w:
                     result["int8"] = self._activate_int8(where="install")
         result["install"] = {"copy_s": copy_s, "mirror_s": mirror_s}
+        return result
+
+    def _install_on_mesh(self, params: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
+                         version: int, warmed: List[int]) -> Dict[str, Any]:
+        """``install_candidate`` in mesh mode: the candidate is copied into
+        every row's placed weights in place (no graph goes stale), then the
+        warm set grows by the stored spec's buckets; ``int8w`` re-gates."""
+        result: Dict[str, Any] = {"swapped": True, "version": int(version),
+                                  "prewarmed_buckets": warmed, "backend": self._obs_backend}
+        with self._ledger.context(where="model_swap", backend=self._obs_backend,
+                                  expected=True):
+            with self._fit_lock, self._warm.lock:
+                if self._int8w:
+                    self._set_qstate(None)
+                t1 = time.perf_counter()
+                self._sharded.install_params(params, opt_state)
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+                copy_s = time.perf_counter() - t1
+                self._model_version = int(version)
+                kind = self._serve_kind()
+                for bucket in warmed:
+                    if bucket not in self._device_warm:
+                        with self._ledger.context(bucket=bucket):
+                            self._warm.capture(kind, bucket, self._zero_upload(bucket))
+                        self._device_warm.add(bucket)
+                if self._int8w:
+                    result["int8"] = self._activate_int8(where="install")
+        result["install"] = {"copy_s": copy_s, "mirror_s": 0.0}
         return result
 
     def save_params_checkpoint(self, directory: str, params: Dict[str, torch.Tensor],
@@ -1996,8 +2113,13 @@ class TorchScorerDetector(CoreDetector):
         # a boundary fit mutates weights and threshold concurrently: land it
         # first so the checkpoint is a consistent post-fit snapshot
         self._finish_fit(wait=True)
-        save_scorer_state(directory, self._model.state_dict(), self._optimizer.state_dict(),
-                          self.state_dict(),
+        if self._sharded is not None:
+            # the first row's weights; the optimizer state is a one-device one
+            params = self._sharded.state_dict()
+            opt_state = self._sharded.optimizer.state_dict()
+        else:
+            params, opt_state = self._model.state_dict(), self._optimizer.state_dict()
+        save_scorer_state(directory, params, opt_state, self.state_dict(),
                           tree_version=MODEL_TREE_VERSIONS.get(self.config.model, 1))
 
     def load_checkpoint(self, directory: str) -> None:
@@ -2007,8 +2129,11 @@ class TorchScorerDetector(CoreDetector):
         params, opt_state, meta = load_scorer_state(
             directory, map_location=self._device,
             accepted_tree_versions=COMPATIBLE_TREE_VERSIONS.get(self.config.model, {1}))
-        self._model.load_state_dict(params)
-        self._optimizer.load_state_dict(opt_state)
+        if self._sharded is not None:
+            self._sharded.install_params(params, opt_state)
+        else:
+            self._model.load_state_dict(params)
+            self._optimizer.load_state_dict(opt_state)
         self._trained = int(meta.get("trained", 0))
         self._fitted = bool(meta.get("fitted", False))
         cand_key, cand_ids = meta.get("cand_key"), meta.get("cand_ids")

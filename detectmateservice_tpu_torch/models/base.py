@@ -102,12 +102,43 @@ class ScorerBase:
                   mu: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def train_step(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                   tokens: torch.Tensor,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """One optimizer step; ``generator`` (on the tokens' device) feeds
-        any randomness the step draws."""
+    def loss_sum(self, model: torch.nn.Module, tokens: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The training loss's numerator over int64 ``tokens``: the loss is
+        ``loss_sum / max(loss_count, 1)``. Split so that the shards of one
+        batch (``parallel/sharded.py``) add up to the whole batch's loss.
+        ``mask`` is ``draw_mask``'s draw."""
         raise NotImplementedError
+
+    def loss_count(self, tokens: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The loss's denominator (fp32 scalar): what ``loss_sum`` sums over."""
+        raise NotImplementedError
+
+    def draw_mask(self, tokens: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """The randomness a training step draws over int64 ``tokens`` (on
+        their device, from ``generator``); None for a step that draws
+        nothing."""
+        return None
+
+    def train_step(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                   tokens: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step on ``loss_terms``; returns the (pre-step)
+        loss. ``generator`` (on the tokens' device) feeds ``draw_mask``; an
+        explicit ``mask`` is used as given instead."""
+        tokens = widen_tokens(tokens)
+        if mask is None:
+            mask = self.draw_mask(tokens, generator)
+        else:
+            mask = mask.to(device=tokens.device, dtype=torch.bool)
+        loss = self.loss_sum(model, tokens, mask) / torch.clamp(
+            self.loss_count(tokens, mask), min=1.0)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
 
     # -- shared surface -------------------------------------------------
     def _use_pallas_head(self) -> bool:
@@ -204,13 +235,15 @@ class SequenceScorerBase(ScorerBase):
         ids (a restored subset) are copied into it, never swapped for a new
         tensor, and no upload happens inside a capture."""
         ids = self._candidate_ids(vocab, n)
-        cached = getattr(self, "_cand_dev", None)
-        if cached is None or cached[1].device != device or cached[1].shape[0] != len(ids):
-            self._cand_dev = (ids, torch.from_numpy(ids).to(device).long())
+        # one copy per device: a mesh's rows may score on several
+        per_device = self.__dict__.setdefault("_cand_dev", {})
+        cached = per_device.get(device)
+        if cached is None or cached[1].shape[0] != len(ids):
+            per_device[device] = (ids, torch.from_numpy(ids).to(device).long())
         elif cached[0] is not ids:
             cached[1].copy_(torch.from_numpy(ids))
-            self._cand_dev = (ids, cached[1])
-        return self._cand_dev[1]
+            per_device[device] = (ids, cached[1])
+        return per_device[device][1]
 
     @classmethod
     def _pallas_lse(cls, hidden: torch.Tensor, emb_matrix: torch.Tensor) -> torch.Tensor:

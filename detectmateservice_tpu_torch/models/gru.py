@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .base import SequenceScorerBase, init_lecun_normal_, widen_tokens
+from .base import SequenceScorerBase, init_lecun_normal_
 from .logbert import LAYER_NORM_EPS, flax_layer_norm
 from .tokenizer import PAD_ID
 
@@ -158,14 +158,16 @@ class GRUScorer(SequenceScorerBase):
         nn.init.ones_(model.final_ln.weight)
         nn.init.zeros_(model.final_ln.bias)
 
-    def train_step(self, model: GRULM, optimizer: torch.optim.Optimizer,
-                   tokens: torch.Tensor,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """One AdamW step on the causal LM loss; returns the (pre-step) loss.
-        Teacher forcing draws nothing, so ``generator`` is unused."""
-        tokens = widen_tokens(tokens)
-        loss = causal_lm_loss(model(tokens), tokens)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+    def loss_sum(self, model: GRULM, tokens: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The non-PAD positions' summed next-token NLL (teacher forcing
+        draws nothing; ``causal_lm_loss`` divides it by their count)."""
+        logits = model(tokens)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens.reshape(-1),
+                              reduction="none")
+        return (nll * (tokens != PAD_ID).reshape(-1).float()).sum()
+
+    def loss_count(self, tokens: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The non-PAD positions."""
+        return (tokens != PAD_ID).reshape(-1).float().sum()

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .base import SequenceScorerBase, init_lecun_normal_, widen_tokens
+from .base import SequenceScorerBase, init_lecun_normal_
 from .tokenizer import MASK_ID, PAD_ID
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -166,23 +166,24 @@ class LogBERTScorer(SequenceScorerBase):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
 
-    def train_step(self, model: LogBERT, optimizer: torch.optim.Optimizer,
-                   tokens: torch.Tensor, generator: Optional[torch.Generator] = None,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One AdamW step on the masked-LM loss; returns the (pre-step) loss.
+    def draw_mask(self, tokens: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Each non-PAD token is masked with probability ``mask_prob``, drawn
+        from ``generator`` on the tokens' device."""
+        draw = torch.rand(tokens.shape, generator=generator, device=tokens.device)
+        return (draw < self.config.mask_prob) & (tokens != PAD_ID)
 
-        Each non-PAD token is masked with probability ``mask_prob``, drawn
-        from ``generator`` (on the tokens' device); an explicit ``mask``
-        ([B, S] bool) is used as given instead."""
-        tokens = widen_tokens(tokens)
-        if mask is None:
-            draw = torch.rand(tokens.shape, generator=generator, device=tokens.device)
-            mask = (draw < self.config.mask_prob) & (tokens != PAD_ID)
-        else:
-            mask = mask.to(device=tokens.device, dtype=torch.bool)
+    def loss_sum(self, model: LogBERT, tokens: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The masked positions' summed NLL, the positions replaced by MASK
+        (``masked_lm_loss`` divides it by their count)."""
         corrupted = torch.where(mask, torch.full_like(tokens, MASK_ID), tokens)
-        loss = masked_lm_loss(model(corrupted), tokens, mask)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        logits = model(corrupted)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens.reshape(-1),
+                              reduction="none")
+        return (nll * mask.reshape(-1).float()).sum()
+
+    def loss_count(self, tokens: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The masked positions."""
+        return mask.reshape(-1).float().sum()

@@ -140,14 +140,13 @@ class MLPScorer(ScorerBase):
         tokens = widen_tokens(tokens)
         return positional_z_max(self.token_nlls(model, tokens), tokens, mu, sigma)
 
-    def train_step(self, model: EmbedMLPModel, optimizer: torch.optim.Optimizer,
-                   tokens: torch.Tensor,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """One AdamW step on the mean bag NLL; returns the (pre-step) loss.
-        The step draws nothing, so ``generator`` is unused."""
-        tokens = widen_tokens(tokens)
-        loss = bag_nll(model(tokens), tokens).mean()
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+    def loss_sum(self, model: EmbedMLPModel, tokens: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rows' summed bag NLL (the step draws nothing; the loss is
+        their mean)."""
+        return bag_nll(model(tokens), tokens).sum()
+
+    def loss_count(self, tokens: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rows."""
+        return torch.tensor(float(tokens.shape[0]), device=tokens.device)

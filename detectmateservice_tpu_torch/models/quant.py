@@ -102,3 +102,27 @@ def quant_stats(qstate: Dict[str, QuantLeaf]) -> Dict[str, int]:
             stats["int8_bytes"] += leaf[0].numel()
             stats["float_bytes"] += leaf[1].numel() * 4
     return stats
+
+
+def quant_shardings(qstate: Dict[str, QuantLeaf], shardings: Dict[str, object],
+                    mesh: object) -> Dict[str, tuple]:
+    """Placements for ``quantize``'s state on a mesh
+    (``parallel/mesh.NamedSharding``s, key for key): the int8 payload is
+    placed exactly like its float leaf; the per-channel scale follows the
+    leaf's channel axis (flax's last axis), so the scales of a weight split
+    over ``model`` along its channels are split with it. A passthrough leaf
+    keeps its float leaf's placement."""
+    from ..parallel.mesh import NamedSharding, P
+
+    out: Dict[str, tuple] = {}
+    for key, leaf in qstate.items():
+        sharding = shardings[key]
+        if len(leaf) == 1:
+            out[key] = (sharding,)
+            continue
+        q, scale = leaf
+        spec = tuple(sharding.spec) + (None,) * (q.dim() - len(sharding.spec))
+        scale_spec = P(*(spec[i] if scale.shape[i] == q.shape[i] else None
+                         for i in range(q.dim())))
+        out[key] = (sharding, NamedSharding(mesh, scale_spec))
+    return out

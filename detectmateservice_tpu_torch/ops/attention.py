@@ -9,6 +9,8 @@ the fused kernels of ``ops/flash.py``. Layout is the JAX package's: q
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -21,6 +23,24 @@ FLASH_MIN_SEQ = 2048
 
 _F32_MIN = torch.finfo(torch.float32).min
 
+# (mesh, batch_axis, seq_axis) for impl="ring", set by the execution layer
+# (parallel.ShardedScorer) around a forward, so the model stays
+# mesh-agnostic: the same LogBERT module scores on one device or sequence-
+# parallel by who wraps the call
+_RING_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "dm_ring_attention_ctx", default=None)
+
+
+@contextlib.contextmanager
+def ring_context(mesh, batch_axis: Optional[str] = None, axis_name: str = "seq"):
+    """Make ``impl="ring"`` resolvable inside model code run under this
+    scope (a CUDA graph captured under it keeps the ring it captured)."""
+    token = _RING_CTX.set((mesh, batch_axis, axis_name))
+    try:
+        yield
+    finally:
+        _RING_CTX.reset(token)
+
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               key_mask: Optional[torch.Tensor] = None,
@@ -28,17 +48,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Route to an attention implementation.
 
     ``impl``: "auto" (flash for CUDA tensors with T >= ``FLASH_MIN_SEQ``,
-    einsum otherwise), "einsum", "flash", "blockwise", or "ring" (sequence
-    parallelism over a device mesh, which the port does not have yet). The
-    mask is the scorer's PAD-key form, [B, T] bool, True = attend; an
-    unknown ``impl`` takes the einsum path, as in the JAX package."""
+    einsum otherwise), "einsum", "flash", "blockwise", or "ring" (sequence-
+    parallel exact attention over the mesh ``ring_context`` provides). The
+    mask is the scorer's PAD-key form, [B, T] bool, True = attend; ring
+    uses it as per-shard key validity. An unknown ``impl`` takes the einsum
+    path, as in the JAX package."""
     t = k.shape[2]
     if impl == "auto":
         impl = "flash" if (q.device.type == "cuda" and t >= FLASH_MIN_SEQ) else "einsum"
     if impl == "ring":
-        raise ValueError(
-            "attention impl='ring' needs a sequence mesh, which the torch port "
-            "does not have yet (the multi-GPU slice); use 'flash' on one GPU")
+        ctx = _RING_CTX.get()
+        if ctx is None:
+            raise ValueError(
+                "attention impl='ring' needs a sequence mesh: run the model "
+                "through parallel.ShardedScorer with a 'seq' mesh axis (or "
+                "wrap the call in ops.attention.ring_context)")
+        mesh, batch_axis, axis_name = ctx
+        from ..parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, mesh, kv_valid=key_mask,
+                              axis_name=axis_name, batch_axis=batch_axis)
     if impl == "flash":
         return flash_attention(q, k, v, key_mask)
     mask = None if key_mask is None else key_mask[:, None, None, :]

@@ -13,8 +13,10 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
   requires ``rollout_dir``, ``drift_enabled`` requires ``rollout_enabled``),
   pipeline tracing (``engine_trace``, ``trace_*``), cross-stage telemetry
   (``telemetry_*``; ``telemetry_addr`` requires ``engine_trace``,
-  ``telemetry_collector`` requires ``telemetry_collector_addr``) and the
-  profiler's ``profile_dir`` and ``profile_max_captures``;
+  ``telemetry_collector`` requires ``telemetry_collector_addr``), the
+  profiler's ``profile_dir`` and ``profile_max_captures``, and the chip
+  plane's ``mesh_shape``, ``coordinator_address``, ``num_processes`` and
+  ``process_id`` (``parallel/``);
 * ``DETECTMATE_``-prefixed environment overrides with ``__`` nesting, env
   winning over YAML per field; strings from the environment are converted
   to the field's type;
@@ -23,8 +25,7 @@ The port's copy of ``detectmateservice_tpu/settings.py`` as a dataclass:
 
 Every field of a JAX subsystem the port does not carry yet (the replica
 router, the WAL and DLQ, shed, zero-copy framing, TLS, fault plans, the
-coordinator, the mesh, the compile cache, multi-ingress shards and the JAX
-platform pin) is known
+compile cache, multi-ingress shards and the JAX platform pin) is known
 with its default: set away from it, it raises ``SettingsError`` naming the
 field and its subsystem. So are addresses whose transport is not ported. A
 setting is never silently ignored.
@@ -88,10 +89,6 @@ UNPORTED: Dict[str, tuple] = {
     "zero_copy_slot_bytes": (262144, "zero-copy framing"),
     "backend": ("auto", "the JAX platform pin (the detector's device is set by "
                         "`device` in its component config)"),
-    "mesh_shape": (None, "the device mesh"),
-    "coordinator_address": (None, "the coordinator"),
-    "num_processes": (1, "the coordinator"),
-    "process_id": (0, "the coordinator"),
     "router_replicas": ([], "the replica router"),
     "router_admin_urls": ([], "the replica router"),
     "router_policy": ("least_backlog", "the replica router"),
@@ -206,6 +203,15 @@ class ServiceSettings:
     # profile_max_captures
     profile_dir: Optional[str] = None
     profile_max_captures: int = _field(4, ge=1, le=64)
+
+    # -- the chip plane (parallel/) ------------------------------------------
+    mesh_shape: Optional[Dict[str, int]] = None  # e.g. {"data": 8}
+    # several processes join one process group (parallel/distributed.py);
+    # the env layer reaches these fields by their names:
+    # DETECTMATE_COORDINATOR_ADDRESS / _NUM_PROCESSES / _PROCESS_ID
+    coordinator_address: Optional[str] = None  # "host:port"
+    num_processes: int = _field(1, ge=1)
+    process_id: int = _field(0, ge=0)
 
     # -- self-diagnosis (engine/health.py) --------------------------------
     watchdog_enabled: bool = True
@@ -393,6 +399,11 @@ def _convert(name: str, tp: Any, value: Any) -> Any:
         if value is None:
             return None
         (tp,) = [a for a in typing.get_args(tp) if a is not type(None)]
+    if typing.get_origin(tp) in (dict, Dict):
+        if not isinstance(value, Mapping) or not all(isinstance(k, str) for k in value):
+            raise SettingsError(f"{name}: expected a mapping of names to integers, "
+                                f"got {value!r}")
+        return {k: _convert(f"{name}.{k}", int, v) for k, v in value.items()}
     if typing.get_origin(tp) in (list, List):
         if not isinstance(value, (list, tuple)) or not all(isinstance(v, str) for v in value):
             raise SettingsError(f"{name}: expected a list of strings, got {value!r}")

@@ -2,7 +2,8 @@
 versions of the port side by side on one CUDA card.
 
     python3 scripts/coalesce_ab_torch.py [--reps N] [--profile-first | --profile-between]
-                                         [--gc-log] [--loop-log] [--lifecycle] [ROOT ...]
+                                         [--gc-log] [--loop-log] [--probe]
+                                         [--switch-interval-ms MS] [--lifecycle] [ROOT ...]
 
 Each ROOT is a checkout of the repo (default: the repo root), for example a
 parent commit unpacked with ``git archive`` into a directory that
@@ -27,14 +28,24 @@ With ``--loop-log`` it logs the engine loop's socket receives (entry,
 return, the timeout set) and its processor calls, and reports for the 5
 longest waits where the loop's time inside each went: blocked in a
 receive past its timeout, inside processor calls, or between calls (the
-interpreter lock, the loop's own Python). ``--lifecycle`` runs ``chip_smoke.lifecycle_service`` (phase 14) instead
-and reports its largest wait outside and inside the cycles.
+interpreter lock, the loop's own Python), and the longest wait's events in
+order (ms from the oldest row's arrival). ``--probe`` runs a thread that
+sleeps 1 ms at a time and logs how late each wake-up came, and reports the
+latest wake-up inside each of the 5 longest waits: a late probe says the
+whole interpreter (its lock, or the process's CPU time) was held up, an
+on-time one that only the engine loop was. ``--switch-interval-ms`` sets
+the interpreter's thread switch interval (``sys.setswitchinterval``; 5 ms
+by default) in the measuring process. Each line also carries the host's
+CPU count, the process's CPU affinity and the load average before and
+after. ``--lifecycle`` runs ``chip_smoke.lifecycle_service`` (phase 14)
+instead and reports its largest wait outside and inside the cycles.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from collections import Counter
 import os
 import shutil
 import subprocess
@@ -140,8 +151,8 @@ class _LoopLog:
 
         patch(sock_mod.ZmqPairSocket, "recv", "recv")
         patch(sock_mod.ZmqPairSocket, "recv_many", "recv_many")
-        for name in ("process_batch", "drain_ready", "flush"):
-            patch(core.LibraryComponentProcessor, name, name)
+        for name in ("process_batch", "_process_frames", "drain_ready", "flush"):
+            patch(core.LibraryComponentProcessor, name, name.lstrip("_"))
         release = detector_cls._release_coalesced
 
         def recording(det, n, reason, now):
@@ -171,11 +182,98 @@ class _LoopLog:
                     busy["calls_ms"] += span * 1e3
             out.append(dict(wait_ms=wait * 1e3, between_ms=(wait - covered) * 1e3,
                             events=len(inside), **busy))
-        return {"slowest_waits": out}
+        slowest = max(self.waits, key=lambda w: w[1]) if self.waits else None
+        timeline = []
+        if slowest is not None:
+            now, wait = slowest
+            a = now - wait
+            # the slowest wait's loop events, ms from the oldest row's arrival
+            timeline = [[round((t0 - a) * 1e3, 3), round((t1 - a) * 1e3, 3), kind]
+                        for t0, t1, kind, _ in self.events if t1 > a and t0 < now][:60]
+        return {"slowest_waits": out, "slowest_timeline": timeline}
+
+
+class _Probe:
+    """A thread that sleeps 1 ms at a time, logging (wake-up, lateness);
+    a wake-up 3 ms late or more also logs where every other thread was
+    (``sys._current_frames``: the innermost frame of the package or the
+    script, else the innermost)."""
+
+    def __init__(self):
+        import threading
+        import time
+
+        self.wakes, self.stalls, self._stop = [], [], threading.Event()
+        self._time, self._threading = time, threading
+        self._thread = threading.Thread(target=self._run, name="WakeProbe", daemon=True)
+        self._thread.start()
+
+    def _where(self) -> dict:
+        names = {t.ident: t.name for t in self._threading.enumerate()}
+        out = {}
+        for ident, frame in sys._current_frames().items():
+            if ident == self._thread.ident:
+                continue
+            pick, f = frame, frame
+            while f is not None:
+                if "detectmateservice" in f.f_code.co_filename or "chip_smoke" in \
+                        f.f_code.co_filename:
+                    pick = f
+                    break
+                f = f.f_back
+            out[names.get(ident, str(ident))] = (
+                f"{os.path.basename(pick.f_code.co_filename)}:{pick.f_lineno} "
+                f"{pick.f_code.co_name}")
+        return out
+
+    def _run(self) -> None:
+        clock, sleep = self._time.monotonic, self._time.sleep
+        while not self._stop.is_set():
+            t0 = clock()
+            sleep(0.001)
+            t1 = clock()
+            late = t1 - t0 - 0.001
+            self.wakes.append((t1, late))
+            if late >= 0.003:
+                self.stalls.append((t1, late, self._where()))
+
+    def close(self, waits) -> dict:
+        self._stop.set()
+        self._thread.join(5)
+        late = sorted(w[1] for w in self.wakes)
+        out = []
+        for now, wait in sorted(waits, key=lambda w: w[1])[-5:]:
+            inside = [lat for t, lat in self.wakes if now - wait <= t <= now + 0.002]
+            stalls = [{"late_ms": round(lat * 1e3, 2), "threads": where}
+                      for t, lat, where in self.stalls if now - wait <= t <= now + 0.002]
+            out.append({"wait_ms": wait * 1e3,
+                        "probe_latest_ms": max(inside) * 1e3 if inside else None,
+                        "stalls": stalls[:3]})
+        pick = (lambda q: late[min(len(late) - 1, int(q * len(late)))] * 1e3) if late else None
+        # every late wake-up of the run: where each other thread was
+        holders = Counter(f"{name} @ {where}" for _, _, threads in self.stalls
+                          for name, where in threads.items())
+        return {"wakes": len(late), "stalls": len(self.stalls),
+                "stall_threads": holders.most_common(12),
+                "p50_late_ms": pick(0.5) if late else None,
+                "p999_late_ms": pick(0.999) if late else None,
+                "max_late_ms": late[-1] * 1e3 if late else None, "slowest_waits": out}
+
+
+def _host() -> dict:
+    import threading
+
+    import torch
+
+    return {"cpus": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+            "loadavg": list(os.getloadavg()), "torch_threads": torch.get_num_threads(),
+            "python_threads": threading.active_count(),
+            "process_threads": len(os.listdir("/proc/self/task"))}
 
 
 def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
-            between: bool = False, lifecycle: bool = False, loop_log: bool = False) -> int:
+            between: bool = False, lifecycle: bool = False, loop_log: bool = False,
+            probe: bool = False, switch_ms: float = 0.0) -> int:
     sys.path.insert(0, root)
     os.chdir(root)
     import io
@@ -189,6 +287,8 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
         return 2
     _, smi = chip_smoke.phase_card()
     chip_smoke.phase_build()
+    if switch_ms > 0:
+        sys.setswitchinterval(switch_ms / 1e3)
     captured = _capture_first() if profile_first else None
     for rep in range(2 * reps if between else reps):
         if between and rep == reps:
@@ -196,8 +296,10 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
         tmp = tempfile.mkdtemp(prefix="dmab", dir="/tmp")
         failed = None
         out = io.StringIO()
+        host0 = _host()
         log = _GcLog(chip_smoke.TorchScorerDetector) if gc_log else None
         loop = _LoopLog(chip_smoke.TorchScorerDetector) if loop_log else None
+        waker = _Probe() if probe else None
         try:
             with redirect_stdout(out):
                 if lifecycle:
@@ -209,8 +311,11 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         gc_doc = log.close() if log is not None else None
+        waits = list(loop.waits) if loop is not None else []
         if loop is not None:
             gc_doc = dict(gc_doc or {}, loop=loop.close())
+        if waker is not None:
+            gc_doc = dict(gc_doc or {}, probe=waker.close(waits))
         phase = "lifecycle" if lifecycle else "coalesce"
         line = [json.loads(x) for x in out.getvalue().splitlines()
                 if x.startswith('{"phase": "%s"' % phase)]
@@ -222,6 +327,8 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
                        lone_p50_ms=doc["lone_p50_ms"]["outside"])
         print(json.dumps({"root": root, "rep": rep, "card": smi, "failed": failed,
                           "profiled_first": captured, "gc": gc_doc,
+                          "switch_interval_ms": sys.getswitchinterval() * 1e3,
+                          "host": {"before": host0, "after": _host()},
                           **{k: doc.get(k) for k in (
                               "max_release_wait_ms", "mean_release_wait_ms",
                               "releases", "socket_lines_per_s", "lone_p50_ms")}}),
@@ -238,17 +345,21 @@ def main(argv: list) -> int:
     parser.add_argument("--gc-log", action="store_true")
     parser.add_argument("--lifecycle", action="store_true")
     parser.add_argument("--loop-log", action="store_true")
+    parser.add_argument("--probe", action="store_true")
+    parser.add_argument("--switch-interval-ms", type=float, default=0.0)
     parser.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("roots", nargs="*")
     args = parser.parse_args(argv)
     roots = [os.path.abspath(r) for r in (args.roots or [REPO])]
     if args.one:
         return measure(roots[0], args.reps, args.profile_first, args.gc_log,
-                       args.profile_between, args.lifecycle, args.loop_log)
+                       args.profile_between, args.lifecycle, args.loop_log, args.probe,
+                       args.switch_interval_ms)
     rc = 0
     extra = ([f"--{name.replace('_', '-')}" for name in (
-        "profile_first", "profile_between", "gc_log", "lifecycle", "loop_log")
+        "profile_first", "profile_between", "gc_log", "lifecycle", "loop_log", "probe")
         if getattr(args, name)])
+    extra += ["--switch-interval-ms", str(args.switch_interval_ms)]
     for root in roots:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                               "--reps", str(args.reps), *extra, root], check=False,

@@ -457,6 +457,46 @@ class TestEngineDeferredOutputs:
             engine.stop()
             client.close()
 
+    def test_short_poll_ends_when_the_held_rows_fall_due(self):
+        """A deliberate difference from the JAX engine (ROADMAP.md's
+        register): with ``drain_due_in_ms`` the short poll ends when the
+        held rows fall due (rounded up, at least 1 ms), not up to a whole
+        tick later; the tick still bounds it."""
+        factory = InprocQueueSocketFactory()
+        proc = HoldingProcessor(ticks_to_release=10**9)
+        proc.due = 4.2
+        proc.drain_due_in_ms = lambda: proc.due if proc.held else None
+        engine = Engine(_engine_settings("inproc://tb-due"), proc, factory)
+        client = factory.create_output("inproc://tb-due")
+        try:
+            engine.start()
+            client.send(b"held-row")
+            assert wait_until(lambda: engine._pair_sock.recv_timeout == 5, 2.0)
+            proc.due = 0.0
+            assert wait_until(lambda: engine._pair_sock.recv_timeout == 1, 2.0)
+            proc.due = 60.0    # beyond the tick: the tick
+            assert wait_until(lambda: engine._pair_sock.recv_timeout == 17, 2.0)
+            ticks = proc.ticks
+            assert wait_until(lambda: proc.ticks > ticks, 2.0)   # a tick drains
+        finally:
+            engine.stop()
+            client.close()
+
+    def test_the_detector_says_when_its_held_rows_fall_due(self):
+        """The coalescing detector's ``drain_due_in_ms``: None while nothing
+        is held, then 0.75 of the deadline less the oldest row's age."""
+        det = TorchScorerDetector(config=dict(BASE, method_type="torch_scorer", device="cpu",
+                                              batch_deadline_ms=40.0))
+        assert det.drain_due_in_ms() is None
+        co = det._get_coalescer()
+        co.add(np.zeros((1, BASE["seq_len"]), np.int32), [b"x"], time.monotonic() - 0.010)
+        due = det.drain_due_in_ms()
+        assert 15.0 < due <= 20.0
+        co.take(1)
+        assert det.drain_due_in_ms() is None
+        co.add(np.zeros((1, BASE["seq_len"]), np.int32), [b"y"], time.monotonic() - 1.0)
+        assert det.drain_due_in_ms() == 0.0
+
     def test_stop_flush_final_drains_held_rows(self):
         factory = InprocQueueSocketFactory()
         proc = HoldingProcessor(ticks_to_release=10**9)
@@ -488,6 +528,7 @@ class TestEngineDeferredOutputs:
         det = svc.library_component
         assert svc.processor.drain_poll_ms == det.drain_poll_ms == 50
         assert svc.processor.note_tenant == det.note_tenant
+        assert svc.processor.drain_due_in_ms == det.drain_due_in_ms
         sink = factory.create("inproc://tb-svc-out")
         client = factory.create_output("inproc://tb-svc")
         sink.recv_timeout = 5000

@@ -522,6 +522,10 @@ def test_coalesce_phase_on_the_cpu(monkeypatch, capsys):
 
     _counting_stand_in(monkeypatch)
     monkeypatch.setattr(chip_smoke, "COALESCE_DETECT", 4096)
+    # (b)'s resurrection needs three small releases inside one sweep interval
+    # (a sweep restarts the pressure count): on a loaded host one release
+    # of 200 rows scored on the CPU can take a third of a second
+    monkeypatch.setattr(chip_smoke, "COALESCE_RETIRE_S", 3.0)
     result = chip_smoke.phase_coalesce("cpu", device="cpu")
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
@@ -593,7 +597,9 @@ def test_uncounted_checks_leave_the_counts(monkeypatch):
 def test_lifecycle_phase_on_the_cpu(monkeypatch, capsys):
     """The lifecycle phase at a narrowed width on the CPU with a counting
     stand-in for the fused head, streams of 4,096 sampled at 0.5 into a
-    reservoir of 1,024: (a) a
+    reservoir of 1,024 and a shifted stream of 16,384 (at 4,096 the
+    reservoir's share of shifted rows leaves KS at 0.20-0.29 against its
+    0.25 threshold, run to run): (a) a
     cycle under load and one with lone messages, (b) promote and rollback
     with 0 captures and candidate scores bit-equal to live, (c) the broken
     candidate held back, (d) drift detected and a drift cycle, (e) a probed
@@ -604,7 +610,7 @@ def test_lifecycle_phase_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "COALESCE_CPU_CHANGES",
                         dict(chip_smoke.COALESCE_CPU_CHANGES, dim=32, min_train_steps=20))
     monkeypatch.setattr(chip_smoke, "LIFECYCLE_DETECT", 4096)
-    monkeypatch.setattr(chip_smoke, "LIFECYCLE_SHIFTED", 4096)
+    monkeypatch.setattr(chip_smoke, "LIFECYCLE_SHIFTED", 16384)
     monkeypatch.setattr(chip_smoke, "LIFECYCLE_CYCLE_AT", 512)
     monkeypatch.setattr(chip_smoke, "LIFECYCLE_SETTINGS", dict(
         chip_smoke.LIFECYCLE_SETTINGS, rollout_sample_ratio=0.5, rollout_sample_capacity=1024))
@@ -719,3 +725,72 @@ def test_the_late_wire_frame_capture_on_the_cpu(monkeypatch, capsys):
     assert line["phase"] == "frames_profile" and line["card"] == "cpu"
     assert result["capture"]["activities"] == ["cpu"] and result["capture"]["trace_bytes"] > 0
     assert result["lines_per_s"] > 0 and "device" not in result
+
+
+def test_mesh_examples_change_only_the_class_name_and_the_head():
+    """Phase mesh's (b) and (c) configurations are the examples' blocks with
+    the port's method type and the fused head, and nothing else."""
+    import yaml
+
+    for name in ("mesh_scorer_config.yaml", "seqparallel_config.yaml"):
+        ref = yaml.safe_load((REPO / "examples" / name).read_text())["detectors"][
+            "JaxScorerDetector"]
+        block = chip_smoke.example_block(name)
+        assert {k: v for k, v in block.items() if ref.get(k) != v} == {
+            "method_type": "torch_scorer", "head_impl": "pallas"}
+        assert set(ref) <= set(block)
+    assert chip_smoke.example_block("mesh_scorer_config.yaml")["mesh_shape"] == {"data": 8}
+    seq = chip_smoke.example_block("seqparallel_config.yaml")
+    assert (seq["attn_impl"], seq["mesh_shape"], seq["dim"], seq["depth"], seq["seq_len"]) == \
+        ("ring", {"data": 2, "seq": 4}, 256, 4, 2048)
+
+
+def test_mesh_phase_on_the_cpu(monkeypatch, capsys):
+    """Phase mesh at a narrowed width on eight CPU shards with a counting
+    stand-in for the fused head: (a) the ring against the blockwise
+    attention, (b) the mesh example against one device with kernel 1 once
+    per row and batch, (c) the sequence-parallel example through its fit
+    against the one-device flash detector, (d) a mesh of one bit-equal, (e)
+    a process group of one (gloo here, NCCL on the card)."""
+    import json
+
+    stand_in = _counting_stand_in(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "RING_SHAPE", (4, 2, 64, 8))
+    monkeypatch.setattr(chip_smoke, "RING_PAD_TAIL", 20)
+    narrow = {"vocab_size": 1024, "dtype": "float32", "dim": 32, "max_batch": 256,
+              "data_use_training": 128, "min_train_steps": 20}
+    monkeypatch.setattr(chip_smoke, "MESH_CPU_CHANGES", narrow)
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ_CPU_CHANGES", {
+        "vocab_size": 1024, "dtype": "float32", "dim": 32, "depth": 1, "seq_len": 64,
+        "max_batch": 16, "data_use_training": 64, "train_epochs": 2, "min_train_steps": 10})
+    monkeypatch.setattr(chip_smoke, "MESH_DETECT", 2048)
+    monkeypatch.setattr(chip_smoke, "MESH_CALL", 256)
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ_DETECT", 64)
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ_CALL", 16)
+    monkeypatch.setattr(chip_smoke, "MESH_ONE_DETECT", 256)
+    result = chip_smoke.phase_mesh("cpu", device="cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [line["phase"] for line in lines] == ["mesh_ring"] * 4 + [
+        "mesh_scorer", "mesh_seqparallel", "mesh_of_one", "mesh_bootstrap", "mesh"]
+    assert all(max(r["max_abs_err"].values()) <= r["tolerance"] for r in result["ring"])
+    scorer, seq = result["scorer"], result["seqparallel"]
+    assert scorer["mesh"] == "mesh(data=8)" and seq["mesh"] == "mesh(data=2,seq=4)"
+    # position norm: ceil(25 / 32) calibration chunk, 8 batches of 256, 8 rows
+    assert scorer["launches"] == scorer["expected_launches"] == (1 + 8) * 8
+    # 64 fit rows in chunks of max_batch 16, 4 batches of 16, 2 rows
+    assert seq["launches"] == seq["expected_launches"] == (4 + 4) * 2
+    assert scorer["vs_one_device"]["max_abs_delta"] < 1e-4 and scorer["alerts_match"]
+    # kernel 1 held against its plain version at each shape the paths gave
+    # it: a row's detect batch is 256 / 8 rows x 32 positions, (c)'s 16 / 2 x 64
+    assert all(r["ok"] for r in scorer["head_checks"] + seq["head_checks"])
+    assert [1024, 1024, 32] in [r["shape"] for r in scorer["head_checks"]]
+    assert [512, 1024, 32] in [r["shape"] for r in seq["head_checks"]]
+    assert seq["vs_one_device_flash"]["max_abs_delta"] < 1e-4
+    assert seq["loss_last"] < seq["loss_first"]
+    assert result["one"]["bit_equal"] and result["one"]["threshold_equal"]
+    assert result["bootstrap"]["backend"] == "gloo" and result["bootstrap"]["returncode"] == 0
+    assert result["launches"] == scorer["launches"] + seq["launches"]
+    # the counts restart before (b) and before (c); the checks beside the
+    # paths run uncounted
+    assert stand_in.launches >= seq["launches"]

@@ -582,16 +582,19 @@ def test_gru_and_int8w_are_accepted(field, value):
 
 
 class TestNotYetPorted:
-    @pytest.mark.parametrize("field,value,slice_name", [
-        ("attn_impl", "ring", "the multi-GPU slice"),
-        ("mesh_shape", {"data": 1}, "multi-GPU"),
+    @pytest.mark.parametrize("field,value,raised", [
+        ("attn_impl", "ring", "ring"),
+        ("mesh_shape", {"data": 3}, "mesh shape"),
     ])
-    def test_raises_naming_the_later_slice(self, field, value, slice_name):
-        # ring attention belongs to the logbert model
+    def test_raises_naming_the_later_slice(self, field, value, raised):
+        """Once ported, both options are accepted at construction and raise
+        at setup_io where the JAX detector raises: ring attention without a
+        sequence mesh, a mesh that needs more devices than there are."""
         cfg = dict(BASE, method_type="torch_scorer", device="cpu",
                    model="logbert" if field == "attn_impl" else BASE["model"])
-        with pytest.raises(LibraryError, match=slice_name):
-            TorchScorerDetector(config=dict(cfg, **{field: value}))
+        det = TorchScorerDetector(config=dict(cfg, **{field: value}))
+        with pytest.raises(ValueError, match=raised):
+            det.setup_io()
 
     @pytest.mark.parametrize("field,value", [
         ("head_impl", "cuda"), ("score_norm", "zscore"), ("dtype", "float8"),
@@ -645,7 +648,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     and framing, its service host (settings, config, engine, sockets,
     metrics, health, the capture ledger, admin plane, CLI), its model
     lifecycle (rollout, drift, capacity), its observability plane (the
-    flight recorder, telemetry, the profiler), chip_smoke.py and
+    flight recorder, telemetry, the profiler), its chip plane (the mesh, the
+    ring, the sharded scorer, the bootstrap), chip_smoke.py and
     bench_torch.py load without any of the forbidden modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
@@ -682,6 +686,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.telemetry.otlp\n"
         "import detectmateservice_tpu_torch.telemetry.perfetto\n"
         "import detectmateservice_tpu_torch.utils.profiling\n"
+        "import detectmateservice_tpu_torch.parallel.mesh\n"
+        "import detectmateservice_tpu_torch.parallel.ring\n"
+        "import detectmateservice_tpu_torch.parallel.sharded\n"
+        "import detectmateservice_tpu_torch.parallel.distributed\n"
         "import chip_smoke\n"
         "import bench_torch\n"
         "print(' '.join(sorted(sys.modules)))\n")
@@ -704,7 +712,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "detectmateservice_tpu_torch.obs.drift" in loaded
     assert "detectmateservice_tpu_torch.obs.capacity" in loaded
     for name in ("engine.tracing", "telemetry.spans", "telemetry.collector",
-                 "telemetry.otlp", "telemetry.perfetto", "utils.profiling"):
+                 "telemetry.otlp", "telemetry.perfetto", "utils.profiling",
+                 "parallel.mesh", "parallel.ring", "parallel.sharded",
+                 "parallel.distributed"):
         assert f"detectmateservice_tpu_torch.{name}" in loaded
     assert "bench_torch" in loaded
 

@@ -245,9 +245,32 @@ def scorer_service(short_dir, serve):
     sender = ZmqPairSocketFactory().create_output(f"ipc://{short_dir}/scorer-in.ipc")
     sender.send(pack_batch(STREAM[:32]))
     assert wait_until(lambda: svc.library_component._fitted, 30.0)
+    # scorer_warmup_pending latches UNHEALTHY while the warm set is captured
+    # and recovers after the watchdog's recovery intervals (2 of 2 s), which
+    # a short fit may not have lasted
+    assert wait_until(lambda: svc.health.state == "healthy", 15.0)
     yield svc, sender, sink, cfg, settings, thread
     sender.close()
     sink.close()
+
+
+def _writable(sock) -> bool:
+    """Whether a dialing socket has a live connection (``IMMEDIATE``: it is
+    writable only then)."""
+    import zmq
+
+    return bool(sock._sock.getsockopt(zmq.EVENTS) & zmq.POLLOUT)
+
+
+def _reconnect(svc, addr):
+    """A sender to a restarted engine on a connection of its own (the
+    stopped engine's input socket is gone, and a message the old connection
+    takes before it notices is lost with it), once both it and the engine's
+    re-dialed outputs are connected (an alert sent before that is dropped)."""
+    sender = ZmqPairSocketFactory().create_output(addr)
+    assert wait_until(lambda: _writable(sender)
+                      and all(_writable(s) for s in svc.engine._out_socks), 10.0)
+    return sender
 
 
 def _anomaly(log_id):
@@ -271,6 +294,8 @@ def test_admin_plane(scorer_service):
     assert http("GET", port, "/admin/status")["status"]["running"] is False
     http("POST", port, "/admin/start")
     assert wait_until(lambda: svc.engine.running)
+    sender.close()
+    sender = _reconnect(svc, svc.settings.engine_addr)
     sink.recv_timeout = 20000
     sender.send(_anomaly("after-restart"))
     assert DetectorSchema.from_bytes(sink.recv())["logIDs"] == ["after-restart"]
@@ -296,6 +321,7 @@ def test_admin_plane(scorer_service):
                    "detector_batch_occupancy", "detector_queue_wait_seconds",
                    "detector_device_seconds"):
         assert f"\n{series}" in metrics, series
+    sender.close()
 
 
 def test_checkpoint_verb_and_restore_on_restart(scorer_service, serve):
@@ -311,9 +337,13 @@ def test_checkpoint_verb_and_restore_on_restart(scorer_service, serve):
     det = fresh.library_component
     assert det._fitted and det._threshold == threshold
     serve(fresh)
+    assert wait_until(lambda: fresh.engine.running, 10.0)
+    sender.close()
+    sender = _reconnect(fresh, settings.engine_addr)
     sink.recv_timeout = 20000
     sender.send(_anomaly("restored"))   # no training: the restore resumes alerting
     assert DetectorSchema.from_bytes(sink.recv())["logIDs"] == ["restored"]
+    sender.close()
 
 
 @pytest.mark.parametrize("method,path", [*UNPORTED_ROUTES, ("GET", "/nope"),

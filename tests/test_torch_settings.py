@@ -50,6 +50,8 @@ YAML = {
     "telemetry_sample_healthy_ratio": 0.5, "telemetry_slo_ms": 250,
     "telemetry_settle_ms": 50, "telemetry_trace_timeout_s": 2, "telemetry_retain_traces": 32,
     "telemetry_otlp_url": "http://127.0.0.1:4318/v1/traces",
+    "mesh_shape": {"data": 2, "seq": 4}, "coordinator_address": "10.0.0.9:8476",
+    "num_processes": 2, "process_id": 1,
     # unported subsystems at their defaults are accepted
     "router_replicas": [], "shed_enabled": False,
 }
