@@ -165,7 +165,24 @@ toolkit (``nvcc``). Phases, each printing JSON lines:
    the same messages. (e) A process group of one over NCCL and a localhost
    coordinator in a subprocess: one ``all_reduce``, ``process_info``,
    exit 0 within 120 s;
-17. last, a 1 s capture over phase 7b's ``process_frames`` loop on a fresh
+17. the container demo stack (phase ``pipeline``): ``container/config/``'s
+   reader, parser, detector and output settings and configs with only the
+   detector's class (the port's scorer, ``head_impl: pallas``), the
+   addresses, the HTTP ports and the paths changed, as four port CLI
+   processes over ipc sockets (the detector's counting its kernel
+   launches, ``serve_counted``). 2,048 raw audit lines of this script's
+   own generator (``make_audit_log``) to fit on, then 65,536 with 1 %
+   anomalies, go into the reader in frames of 512; a 1 s ``/admin/profile``
+   capture of the detector's process runs during the stream. Every stage
+   must read every line its upstream wrote, every parser output (a tap
+   beside the detector) equal the port's plain parse of its line but the
+   drawn ids and timestamps, recall >= 0.9 from the output files, no alert
+   flip against the einsum head on the stage's shutdown checkpoint 1e-2 or
+   farther from the threshold, kernel 1 hold against its plain version at
+   every shape the detector gave it (2e-3), and every process exit 0 after
+   ``POST /admin/shutdown``, the captured one too; lines/s per stage and
+   end to end;
+18. last, a 1 s capture over phase 7b's ``process_frames`` loop on a fresh
    detector of its configuration, with its busy share (``frames_profile``);
 
 The LogBERT check (in phase 8, before its detector is freed):
@@ -300,6 +317,21 @@ RETIRE_SMALL = 200
 RETIRE_LARGE = 1024
 # off the card (a CPU rehearsal) the example is narrowed to these values
 COALESCE_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
+
+# the pipeline phase: container/config/'s demo stack, its detector the port's
+# scorer; raw audit lines go into the reader in frames of PIPELINE_FRAME
+PIPELINE_STAGES = ("reader", "parser", "detector", "output")
+PIPELINE_FIT = 2048
+PIPELINE_DETECT = 65536
+PIPELINE_FRAME = 512
+AUDIT_NORMAL = (("cron", "/usr/sbin/cron", 0), ("sshd", "/usr/sbin/sshd", 0),
+                ("systemd", "/lib/systemd/systemd", 0), ("bash", "/bin/bash", 1000),
+                ("python3", "/usr/bin/python3", 1000))
+AUDIT_ANOMALOUS = (("nc", "/tmp/.hidden/nc", 1000), ("xmrig", "/dev/shm/xmrig", 33),
+                   ("sh", "/var/www/uploads/sh", 33))
+# off the card (a CPU rehearsal) the detector is narrowed to these values
+PIPELINE_CPU_CHANGES = {"vocab_size": 1024, "dim": 32, "max_batch": 1024,
+                        "dtype": "float32"}
 
 # the lifecycle phase: the scorer example with rollout, drift and capacity
 # on, every other rollout_*/drift_*/capacity_* setting at its default but
@@ -3970,6 +4002,433 @@ def _trace_stream(tmp, smi, lse_ms, device, detector, setup_s, stages, alerts, f
     return result
 
 
+# -- the pipeline phase --------------------------------------------------------
+def audit_line(i: int, rng, anomaly: bool) -> str:
+    """One Linux-audit SYSCALL record (the header ``container/config/``'s
+    parser format reads, then the content its template matches): normal
+    records run one of five processes; an anomalous one runs an
+    executable no normal record has. Its stamp cycles through 60 seconds,
+    4 milliseconds and 64 serials and each process keeps 4 pids, so that
+    the fit sees every value of those fields: the stack's detector config
+    has no ``score_norm`` to quiet fields that differ on every line, and a
+    line's only unseen tokens are then an anomaly's."""
+    k = rng.integers(len(AUDIT_ANOMALOUS if anomaly else AUDIT_NORMAL))
+    comm, exe, uid = AUDIT_ANOMALOUS[k] if anomaly else AUDIT_NORMAL[k]
+    syscall = 59 if anomaly else (59, 42, 2)[rng.integers(3)]
+    stamp = f"{1_753_800_000 + i % 60}.{250 * (i % 4):03d}:{9000 + i % 64}"
+    return (f"type=SYSCALL msg=audit({stamp}): arch=c000003e syscall={syscall} success=yes "
+            f"exit=0 pid={1000 + 10 * k + rng.integers(4)} uid={uid} comm=\"{comm}\" "
+            f"exe=\"{exe}\"")
+
+
+def make_audit_log(n_fit: int, n_detect: int, anomaly_rate: float = 0.01,
+                   seed: int = 7) -> tuple:
+    """``n_fit`` normal lines, then ``n_detect`` with ``anomaly_rate``
+    anomalies → (lines, indices of the anomalous lines)."""
+    rng = np.random.default_rng(seed)
+    lines, anomalies = [], set()
+    for i in range(n_fit + n_detect):
+        anomaly = i >= n_fit and rng.random() < anomaly_rate
+        lines.append(audit_line(i, rng, anomaly))
+        if anomaly:
+            anomalies.add(i)
+    return lines, anomalies
+
+
+def pipeline_files(tmp: Path, device: str = "cuda") -> dict:
+    """The demo stack's four stages from ``container/config/`` under ``tmp``
+    with only these changes: the detector's component type (the port's
+    scorer in place of ``JaxScorerDetector``, its config block renamed with
+    ``method_type: torch_scorer`` and ``head_impl: pallas``); the addresses
+    (ipc sockets under ``tmp``, the parser's outputs with a tap the phase
+    reads, the output stage's records to a socket the phase drains (without
+    an output it answers on its input socket, which its detector never
+    reads), HTTP on 127.0.0.1 at free ports); the paths (config files, the
+    templates file, the output directory, the detector's
+    ``checkpoint_dir``); and, off the card, ``device`` and
+    ``PIPELINE_CPU_CHANGES``. Returns {stage: settings file}."""
+    import yaml
+
+    conf = Path(__file__).resolve().parent / "container" / "config"
+    out = {}
+    for stage in PIPELINE_STAGES:
+        settings = yaml.safe_load((conf / f"{stage}_settings.yaml").read_text())
+        config = yaml.safe_load((conf / f"{stage}_config.yaml").read_text())
+        if stage == "detector":
+            block = dict(config["detectors"]["JaxScorerDetector"],
+                         method_type="torch_scorer", head_impl="pallas")
+            if device != "cuda":
+                block.update(PIPELINE_CPU_CHANGES, device=device)
+            config = {"detectors": {"TorchScorerDetector": block}}
+            settings.update(component_type=TORCH_SCORER,
+                            checkpoint_dir=str(tmp / "ckpt"))
+        elif stage == "parser":
+            config["parsers"]["MatcherParser"]["params"]["path_templates"] = str(
+                conf / "audit_templates.txt")
+        elif stage == "output":
+            # `directory` is no field of OutputWriterConfig (a key the
+            # component keeps unread, as the JAX one does): the records go
+            # to the stage's working directory, which the phase sets to it
+            config["outputs"]["OutputWriter"]["directory"] = str(tmp / "out")
+        nxt = {"reader": ["parser"], "parser": ["detector", "tap"],
+               "detector": ["output"], "output": ["records"]}[stage]
+        settings.update(engine_addr=f"ipc://{tmp}/{stage}.ipc",
+                        out_addr=[f"ipc://{tmp}/{n}.ipc" for n in nxt],
+                        http_host="127.0.0.1", http_port=_free_port(),
+                        config_file=str(tmp / f"{stage}_config.yaml"))
+        (tmp / f"{stage}_config.yaml").write_text(yaml.safe_dump(config))
+        path = tmp / f"{stage}_settings.yaml"
+        path.write_text(yaml.safe_dump(settings))
+        out[stage] = path
+    return out
+
+
+def serve_counted(settings_path: str, report_path: str) -> int:
+    """``detectmateservice_tpu_torch.cli.main`` for one settings file,
+    counting kernel 1's launches from the end of ``setup_io`` to shutdown
+    and recording every shape the detector hands it; the counts go to
+    ``report_path`` as JSON once the CLI returns. The pipeline phase starts
+    its detector stage so."""
+    from detectmateservice_tpu_torch import cli
+
+    services = []
+
+    class Counted(cli.Service):
+        def setup_io(self):
+            super().setup_io()
+            reset_launches()
+            services.append((self, replayed(self.library_component)))
+
+    cli.Service = Counted
+    with _head_shapes() as shapes:
+        rc = cli.main(["--settings", settings_path])
+    service, replays0 = services[0]
+    det = service.library_component
+    Path(report_path).write_text(json.dumps({
+        "returncode": rc, "launches": read_launches(), "variants": read_variants(),
+        "replayed": replay_delta(det, replays0), "device_batches": det.path_counts,
+        "shapes": [[n, c, d, _dtype_name(dtype)] for n, c, d, dtype in sorted(
+            shapes.shapes, key=lambda t: (t[0], t[1], t[2], str(t[3])))]}))
+    return rc
+
+
+class _Tap(threading.Thread):
+    """Receives the parser's outputs on the tap address, in order."""
+
+    def __init__(self, sock):
+        super().__init__(name="ParserTap", daemon=True)
+        self.sock, self.msgs, self.t_last = sock, [], None
+        self.stop_flag = threading.Event()
+
+    def run(self) -> None:
+        self.sock.recv_timeout = 50
+        while not self.stop_flag.is_set():
+            try:
+                frame = self.sock.recv()
+            except TransportTimeout:
+                continue
+            self.msgs.extend(_messages_of([frame]))
+            self.t_last = time.perf_counter()
+
+
+def _stage_lines(ports: dict, cids: dict, timeout: float = 30.0) -> dict:
+    """Each stage's read and written lines, from its ``/metrics``."""
+    out = {}
+    for stage, port in ports.items():
+        text = _http("GET", port, "/metrics", timeout)[1]
+        out[stage] = (metric_value(text, "data_read_lines_total", cids[stage]),
+                      metric_value(text, "data_written_lines_total", cids[stage]))
+    return out
+
+
+def _parser_fields_differ(got: dict, want: dict, t_lo: int, t_hi: int) -> list:
+    """The fields where a parser output differs from the plain path's on the
+    same line: every field equal but the drawn ones, ``parsedLogID`` (32
+    lowercase hex digits) and the two timestamps (this run's seconds)."""
+    bad = [k for k in want if k not in ("parsedLogID", "receivedTimestamp",
+                                        "parsedTimestamp") and got[k] != want[k]]
+    if not re.fullmatch(r"[0-9a-f]{32}", got["parsedLogID"]):
+        bad.append("parsedLogID")
+    for key in ("receivedTimestamp", "parsedTimestamp"):
+        if not t_lo <= got[key] <= t_hi:
+            bad.append(key)
+    return bad
+
+
+def phase_pipeline(smi: str, device: str = "cuda") -> dict:
+    """The container demo stack on the port: reader → parser → scorer →
+    output as four port CLI processes over ipc sockets, fed raw audit lines
+    (``make_audit_log``): 2,048 to fit on, then 65,536 with 1 % anomalies,
+    in frames of ``PIPELINE_FRAME`` lines; one 1 s ``/admin/profile``
+    capture of the detector's process during the stream. Fails unless
+    every stage read every line its upstream sent, every parser output (the
+    tap beside the detector) equals the port's plain path on its line,
+    recall >= 0.9 from the output files, no alert flips against the
+    einsum-head detector restored from the stage's shutdown checkpoint 1e-2
+    or farther from its threshold, kernel 1 holds against its plain version
+    at every shape the detector handed it, and every process exits 0 after
+    ``POST /admin/shutdown``."""
+    import yaml
+
+    from detectmateservice_tpu_torch.library.parsers import MatcherParser
+    from detectmateservice_tpu_torch.schemas import LogSchema
+
+    tmp = Path(tempfile.mkdtemp(prefix="dmpl", dir="/tmp"))
+    procs, sender, tap_sock, tap, forwarded_sock, forwarded = {}, None, None, None, None, None
+    try:
+        files = pipeline_files(tmp, device)
+        (tmp / "out").mkdir()
+        docs = {stage: yaml.safe_load(path.read_text()) for stage, path in files.items()}
+        ports = {stage: doc["http_port"] for stage, doc in docs.items()}
+        cids = {stage: ServiceSettings.from_yaml(str(path)).component_id
+                for stage, path in files.items()}
+        lines, anomalies = make_audit_log(PIPELINE_FIT, PIPELINE_DETECT)
+        factory = ZmqPairSocketFactory()
+        tap_sock = factory.create(f"ipc://{tmp}/tap.ipc")
+        tap = _Tap(tap_sock)
+        tap.start()
+        forwarded_sock = factory.create(f"ipc://{tmp}/records.ipc")
+        forwarded = _Tap(forwarded_sock)
+        forwarded.start()
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        # downstream first, so that every stage's outputs find their peer
+        for stage in ("output", "detector", "parser", "reader"):
+            if stage == "detector":
+                cmd = [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                       f"chip_smoke.serve_counted({str(files[stage])!r}, "
+                       f"{str(tmp / 'detector_report.json')!r}))"]
+            else:
+                cmd = [sys.executable, "-m", "detectmateservice_tpu_torch.cli",
+                       "--settings", str(files[stage])]
+            with open(tmp / f"{stage}.out", "wb") as out, open(tmp / f"{stage}.err", "wb") as err:
+                procs[stage] = subprocess.Popen(
+                    cmd, stdout=out, stderr=err, env=env,
+                    cwd=tmp / "out" if stage == "output" else root)
+
+            def running(stage=stage):
+                if procs[stage].poll() is not None:
+                    raise AssertionError(
+                        f"the {stage} stage exited: "
+                        f"{(tmp / f'{stage}.err').read_text()[-2000:]}")
+                try:
+                    return _http("GET", ports[stage], "/admin/status", 2)[1]["status"]["running"]
+                except OSError:
+                    return False
+
+            _wait(running, 300, f"the {stage} stage", interval=0.2)
+            print(f"pipeline: the {stage} stage runs ({time.perf_counter() - t0:.1f} s)",
+                  file=sys.stderr, flush=True)
+        start_s = time.perf_counter() - t0
+        sender = factory.create_output(f"ipc://{tmp}/reader.ipc", buffer_size=1000)
+        raw = [line.encode() for line in lines]
+        # per stage, (time, read lines) while the stream runs
+        progress, profile = {stage: [] for stage in PIPELINE_STAGES}, None
+        t_first = time.perf_counter()
+        for i in range(0, PIPELINE_FIT, PIPELINE_FRAME):
+            sender.send(pack_batch(raw[i:i + PIPELINE_FRAME]))
+        # one capture of the detector's process while the detect lines flow
+        profile = _http("POST", ports["detector"], "/admin/profile", payload={
+            "seconds": 1.0, "out_dir": str(tmp / "profile")})
+        for i in range(PIPELINE_FIT, len(raw), PIPELINE_FRAME):
+            sender.send(pack_batch(raw[i:i + PIPELINE_FRAME]))
+        t_sent = time.perf_counter()
+        total = len(raw)
+        print(f"pipeline: {total} lines sent", file=sys.stderr, flush=True)
+
+        last = {"said": 0.0}
+
+        def poll(stage, path, parse):
+            try:
+                return parse(_http("GET", ports[stage], path, 5.0)[1])
+            except OSError as exc:
+                return f"no answer: {exc}"
+
+        def settled():
+            now = time.perf_counter()
+            counts = {stage: poll(stage, "/metrics", lambda text, stage=stage: (
+                metric_value(text, "data_read_lines_total", cids[stage]),
+                metric_value(text, "data_written_lines_total", cids[stage])))
+                for stage in PIPELINE_STAGES}
+            scored = poll("detector", "/metrics", lambda text: sum(
+                float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                if line.startswith("detector_device_lines_total{")))
+            profiling_now = poll("detector", "/admin/profile", lambda doc: doc["running"])
+            last.update(counts=counts, scored=scored, profiling=profiling_now,
+                        tapped=len(tap.msgs), forwarded=len(forwarded.msgs))
+            if now - last["said"] > 5.0:
+                last["said"] = now
+                print(f"pipeline: {now - t_sent:.1f} s after the send: "
+                      f"{ {k: v for k, v in last.items() if k != 'said'} }",
+                      file=sys.stderr, flush=True)
+            if any(isinstance(v, str) for v in (*counts.values(), scored, profiling_now)):
+                return False    # a stage too busy to answer is not settled
+            for stage, (read, _) in counts.items():
+                progress[stage].append((now, read))
+            done = (len(tap.msgs) >= total and counts["reader"][0] >= total
+                    and counts["detector"][0] >= counts["parser"][1]
+                    and scored >= PIPELINE_DETECT
+                    and counts["output"][0] >= counts["detector"][1]
+                    and not profiling_now)
+            if not done:
+                settled.quiet = None
+            elif settled.quiet is None:
+                settled.quiet = now
+            return done and now - settled.quiet > 1.0
+
+        settled.quiet = None
+        try:
+            _wait(settled, 240, "the pipeline to drain", interval=0.1)
+        except AssertionError as exc:
+            tails = {stage: (tmp / f"{stage}.err").read_text()[-600:] for stage in procs}
+            raise AssertionError(f"{exc}: last {last}; stderr {tails}") from exc
+        counts = _stage_lines(ports, cids)
+        profile_status = _http("GET", ports["detector"], "/admin/profile")[1]
+        exits = {}
+        for stage in PIPELINE_STAGES:
+            _http("POST", ports[stage], "/admin/shutdown")
+            exits[stage] = procs[stage].wait(timeout=120)
+        report = json.loads((tmp / "detector_report.json").read_text())
+
+        # the parser's outputs against the port's plain path on each line
+        parsed = [ParserSchema.from_bytes(m) for m in tap.msgs]
+        pconf = yaml.safe_load((tmp / "parser_config.yaml").read_text())
+        pconf["parsers"]["MatcherParser"]["params"]["native_parse"] = False
+        plain_parser = MatcherParser(config=pconf)  # the Service builds it unnamed
+        t_lo, t_hi = int(time.time()) - 3600, int(time.time())
+        parser_mismatch, bad_ids = [], 0
+        for i, got in enumerate(parsed[:total]):
+            log_id = got["logID"]
+            if not re.fullmatch(r"[0-9a-f]{8}-[0-9a-f]{4}-4[0-9a-f]{3}-[89ab][0-9a-f]{3}-"
+                                r"[0-9a-f]{12}", log_id):
+                bad_ids += 1
+            envelope = LogSchema(logID=log_id, log=lines[i], logSource="x",
+                                 hostname="h").serialize()
+            want = ParserSchema.from_bytes(
+                plain_parser._process_batch_plain([envelope])[0]).to_dict()
+            bad = _parser_fields_differ(got.to_dict(), want, t_lo, t_hi)
+            if bad and len(parser_mismatch) < 5:
+                parser_mismatch.append({"line": i, "fields": bad})
+            elif bad:
+                parser_mismatch.append(None)
+        index = {p["logID"]: i for i, p in enumerate(parsed)}
+
+        # the alerts in the output files
+        records = [json.loads(line) for f in sorted((tmp / "out").glob("output.*"))
+                   for line in f.read_text().splitlines()]
+        alerted = [index.get(log_id, -1) for r in records for log_id in r["logIDs"]]
+
+        # the plain detector: the stage's checkpoint under the einsum head
+        dconf = yaml.safe_load((tmp / "detector_config.yaml").read_text())
+        block = dict(dconf["detectors"]["TorchScorerDetector"], head_impl="einsum")
+        plain = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": block}})
+        plain.setup_io()
+        plain.load_checkpoint(str(tmp / "ckpt"))
+        threshold = plain._threshold
+        detect = list(range(PIPELINE_FIT, total))
+        tokens, ok = plain._featurize_raw_batch([tap.msgs[i] for i in detect])
+        scores = np.concatenate([plain.score_tokens(tokens[j:j + 4096])
+                                 for j in range(0, len(tokens), 4096)])
+        want = {detect[j] for j in np.flatnonzero(ok & (scores > threshold))}
+        flips = sorted(want ^ set(alerted))
+        near = [float(abs(scores[i - PIPELINE_FIT] - threshold)) if i >= PIPELINE_FIT
+                else float("inf") for i in flips]
+        del plain
+        head_checks = mesh_head_checks(
+            [(n, c, d, getattr(torch, dt)) for n, c, d, dt in report["shapes"]],
+            device) if device == "cuda" else []
+
+        # what each stage logged as an error (the detector's profiler
+        # capture among them), for the record
+        errors = {stage: [line for line in (tmp / f"{stage}.err").read_text(
+            errors="replace").splitlines() if "ERROR" in line][:4] for stage in procs}
+
+        def rate(stage):
+            seen = [(t, n) for t, n in progress[stage] if n > 0]
+            done = [t for t, n in seen if n >= seen[-1][1]] if seen else []
+            return (seen[-1][1] / (done[0] - t_first)) if done and done[0] > t_first else None
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+        for thread in (tap, forwarded):
+            if thread is not None:
+                thread.stop_flag.set()
+                thread.join(10)
+        for sock in (sender, tap_sock, forwarded_sock):
+            if sock is not None:
+                sock.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    recall = len(anomalies & set(alerted)) / max(1, len(anomalies))
+    result = dict(
+        card=smi, start_s=start_s, lines_sent=total, n_fit=PIPELINE_FIT,
+        n_detect=PIPELINE_DETECT,
+        end_to_end_lines_per_s=total / ((tap.t_last or t_sent) - t_first),
+        sender_lines_per_s=total / (t_sent - t_first),
+        stage_read_lines_per_s={stage: rate(stage) for stage in PIPELINE_STAGES},
+        stage_lines={stage: {"read": r, "written": w} for stage, (r, w) in counts.items()},
+        parser_outputs=len(parsed), parser_mismatches=len(parser_mismatch),
+        parser_mismatch_examples=[m for m in parser_mismatch if m][:5], bad_log_ids=bad_ids,
+        records=len(records), records_forwarded=len(forwarded.msgs), alerts=len(alerted),
+        unique_alerts=len(set(alerted)),
+        anomalies=len(anomalies), recall=recall,
+        precision=len(anomalies & set(alerted)) / max(1, len(set(alerted))),
+        threshold=threshold, decision_flips=len(flips), flip_distances=near[:16],
+        launches=report["launches"]["candidate_lse"], launch_counts=report["launches"],
+        variants=report["variants"]["candidate_lse"], replayed_launches=report["replayed"],
+        device_batches=report["device_batches"], head_shapes=report["shapes"],
+        head_checks=head_checks,
+        head_max_abs_err=max((r["max_abs_err"] for r in head_checks), default=0.0),
+        profile={"started": profile[0],
+                 "last": {k: (profile_status.get("last") or {}).get(k)
+                          for k in ("state", "activities", "trace_bytes")}},
+        exits=exits, detector_exit=report["returncode"], stage_errors=errors)
+    emit("pipeline", **result)
+    failures = []
+    if counts["reader"][0] != total:
+        failures.append(f"the reader read {counts['reader'][0]} lines of {total}")
+    for stage, up in (("parser", "reader"), ("detector", "parser"), ("output", "detector")):
+        if counts[stage][0] != counts[up][1]:
+            failures.append(f"the {stage} read {counts[stage][0]} lines of the "
+                            f"{counts[up][1]} its upstream wrote")
+    if len(parsed) != total or parser_mismatch or bad_ids:
+        failures.append(f"parser outputs: {len(parsed)} of {total}, "
+                        f"{len(parser_mismatch)} apart from the plain path "
+                        f"{result['parser_mismatch_examples']}, {bad_ids} malformed logIDs")
+    if len(set(alerted)) != len(alerted) or -1 in alerted:
+        failures.append("an alert was written twice or names no line")
+    if len(forwarded.msgs) != len(records):
+        failures.append(f"{len(records)} records in the files, {len(forwarded.msgs)} forwarded")
+    if recall < 0.9:
+        failures.append(f"recall {recall}")
+    if near and min(near) < float("inf") and max(near) >= 1e-2:
+        failures.append(f"decisions apart from the einsum head beyond 1e-2: {near[:16]}")
+    if any(d == float("inf") for d in near):
+        failures.append("an alert on a fit line")
+    if any(rc != 0 for rc in exits.values()) or report["returncode"] != 0:
+        failures.append(f"exit codes {exits}")
+    if profile[0] != 200 or (profile_status.get("last") or {}).get("state") != "done":
+        failures.append(f"the detector's profiler capture: {profile} {profile_status}")
+    if device == "cuda":
+        if report["launches"]["candidate_lse"] < 1 or not head_checks:
+            failures.append(f"launches {report['launches']}, shapes {report['shapes']}")
+        if result["head_max_abs_err"] > 2e-3:
+            failures.append(f"kernel 1 against its plain version: {head_checks}")
+        try:
+            check_head_variants(result["variants"], "wgmma_tma_d128_",
+                                report["launches"]["candidate_lse"], "pipeline")
+            check_replays(report["replayed"],
+                          {"candidate_lse": report["launches"]["candidate_lse"]}, "pipeline")
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if failures:
+        raise AssertionError(f"the pipeline phase failed: {failures}")
+    return result
+
+
 def run_isolated(name: str, *args) -> dict:
     """``name(*args)`` of this script in a fresh interpreter (kernels load
     from the build cache phase 2 filled): its lines pass through, its
@@ -4040,6 +4499,7 @@ def main() -> int:
     trace = run_isolated("phase_trace", _smi, lse_times[(1024, 128)]["ms"])
     mesh = phase_mesh(_smi)
     torch.cuda.empty_cache()
+    pipeline = phase_pipeline(_smi)
     phase_frames_profile(_smi)
     logbert_lc = logbert["lifecycle"]
     mlp_row = lse_times[(CALL_SIZE, 128)]
@@ -4053,7 +4513,7 @@ def main() -> int:
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]
                      + service["launches"] + coalesce["launches"] + lifecycle["launches"]
                      + int8_lc["launches"] + logbert_lc["launch_counts"]["candidate_lse"]
-                     + trace["launches"] + mesh["launches"]),
+                     + trace["launches"] + mesh["launches"] + pipeline["launches"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
@@ -4062,7 +4522,8 @@ def main() -> int:
                              "lifecycle": lifecycle["launches"],
                              "int8w_lifecycle": int8_lc["launches"],
                              "logbert_lifecycle": logbert_lc["launch_counts"]["candidate_lse"],
-                             "trace": trace["launches"], "mesh": mesh["launches"]},
+                             "trace": trace["launches"], "mesh": mesh["launches"],
+                             "pipeline": pipeline["launches"]},
         # every launch of the serving paths ran as part of a CUDA-graph
         # replay; on the lifecycle paths the candidate's shadow chunks run
         # op by op
@@ -4078,8 +4539,9 @@ def main() -> int:
                              "logbert_lifecycle":
                                  logbert_lc["replayed_launches"]["candidate_lse"],
                              "trace": trace["replayed_launches"]["candidate_lse"],
-                             "mesh": mesh["replayed_launches"]["candidate_lse"]},
-        "max_abs_err": max(lse_err, mesh["head_max_abs_err"]),
+                             "mesh": mesh["replayed_launches"]["candidate_lse"],
+                             "pipeline": pipeline["replayed_launches"]["candidate_lse"]},
+        "max_abs_err": max(lse_err, mesh["head_max_abs_err"], pipeline["head_max_abs_err"]),
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
         "bound_ms": mlp_row["bound_ms"],
@@ -4097,7 +4559,8 @@ def main() -> int:
                                 "lifecycle": lifecycle["variants"],
                                 "int8w_lifecycle": int8_lc["variants"],
                                 "logbert_lifecycle": logbert_lc["variants"]["candidate_lse"],
-                                "trace": trace["variants"], "mesh": mesh["variants"]},
+                                "trace": trace["variants"], "mesh": mesh["variants"],
+                                "pipeline": pipeline["variants"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],

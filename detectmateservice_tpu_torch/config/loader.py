@@ -8,7 +8,7 @@ subclass the port's ``CoreConfig``. ImportError for a missing module,
 AttributeError for a missing class, RuntimeError for a contract violation.
 
 A path into the JAX package, or one that only the JAX package's library
-holds (``parsers.template_matcher.MatcherParser``), raises ImportError
+holds (``detectors.new_value_detector.NewValueDetector``), raises ImportError
 saying that the component is not ported: the port never imports the JAX
 package.
 """

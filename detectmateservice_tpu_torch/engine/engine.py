@@ -34,8 +34,10 @@ The port's copy of ``detectmateservice_tpu/engine/engine.py``:
   polls with a short timeout and calls ``drain_ready`` on each tick; a
   processor with ``drain_due_in_ms`` (a coalescer's next due time) has the
   poll end when its held rows fall due, not up to a tick later (the JAX
-  engine polls at the tick only); the blocking ``flush`` runs only when the
-  input goes truly idle, and ``flush_final`` when the loop stops;
+  engine polls at the tick only), and a burst ends at that due time
+  instead of lasting ``engine_batch_timeout_ms`` (the JAX engine waits out
+  the burst); the blocking ``flush`` runs only when the input goes truly
+  idle, and ``flush_final`` when the loop stops;
 * a chunk whose processing raises is re-dispatched one message at a time
   (poison isolation): healthy messages complete, and one that fails every
   one of its ``dlq_max_attempts`` attempts is counted and dropped;
@@ -462,6 +464,13 @@ class Engine:
         read_l.inc(sum(map(count_lines, msgs)))
         return msgs
 
+    @staticmethod
+    def _burst_deadline(batch_timeout_s: float, held_until: Optional[float]) -> float:
+        """A burst lasts ``engine_batch_timeout_ms``, and ends earlier when
+        rows held from before it fall due."""
+        deadline = time.monotonic() + batch_timeout_s
+        return deadline if held_until is None else min(deadline, held_until)
+
     def _collect_burst(self, deadline: float, remaining_fn, on_frame) -> None:
         """Receive further frames until ``deadline`` or until
         ``remaining_fn()`` (items still wanted, also recv_many's count) is
@@ -524,12 +533,16 @@ class Engine:
                 self._hb_loop.beat()
                 if self._calls:
                     self._run_calls()
+                # the held rows' due time on the monotonic clock: a burst
+                # ends there
+                held_until = None
                 if callable(pending_fn):
                     want = short_timeout if pending_fn() > 0 else base_timeout
                     due = due_fn() if want == short_timeout and callable(due_fn) else None
                     if due is not None:
                         # wake when the held rows fall due, not a tick later
                         want = max(1, min(short_timeout, math.ceil(due)))
+                        held_until = time.monotonic() + due / 1000.0
                     if want != current_timeout:
                         self._pair_sock.recv_timeout = want
                         current_timeout = want
@@ -574,7 +587,7 @@ class Engine:
                         frames.append(nxt)
                         est[0] += frame_msg_count(nxt)
 
-                    self._collect_burst(time.monotonic() + batch_timeout_s,
+                    self._collect_burst(self._burst_deadline(batch_timeout_s, held_until),
                                         lambda: batch_size - est[0], on_frame)
                     if not frames:
                         continue
@@ -604,7 +617,7 @@ class Engine:
                 def on_burst_frame(nxt: bytes) -> None:
                     batch.extend(self._expand_frame(nxt, read_b, read_l, err_c))
 
-                self._collect_burst(time.monotonic() + batch_timeout_s,
+                self._collect_burst(self._burst_deadline(batch_timeout_s, held_until),
                                     lambda: batch_size - len(batch), on_burst_frame)
                 ingress_g.set(len(batch))
                 # a packed frame can carry more than engine_batch_size messages:

@@ -148,6 +148,16 @@ FEATURIZE_FALLBACK_ROWS = _series(
     Counter, "featurize_fallback_rows_total",
     "Rows featurized by the Python fallback path (kernel-flagged or kernel unavailable)")
 
+# which path decoded and serialized each parser row (MatcherParser): native =
+# the C row, fallback = the Python path (rows the C side flags, or every row
+# with native_parse off)
+PARSE_NATIVE_ROWS = _series(
+    Counter, "parse_native_rows_total",
+    "Parser rows decoded and serialized by the native (C) host path")
+PARSE_FALLBACK_ROWS = _series(
+    Counter, "parse_fallback_rows_total",
+    "Parser rows that fell back to the Python path (kernel-flagged or kernel unavailable)")
+
 # the capture ledger (engine/device_obs.py). The names keep "xla": they are
 # the JAX package's series, which the repo's dashboards and alert rules read
 # for both packages; on the card a "compile" is a CUDA-graph capture of one

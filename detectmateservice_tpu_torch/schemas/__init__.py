@@ -25,8 +25,10 @@ __all__ = [
     "SCHEMA_VERSION",
     "SchemaError",
     "BaseSchema",
+    "LogSchema",
     "ParserSchema",
     "DetectorSchema",
+    "OutputSchema",
 ]
 
 # field kinds
@@ -361,6 +363,15 @@ def _check_int32(value: Any, where: str) -> int:
     return value
 
 
+class LogSchema(BaseSchema):
+    """Reader output: one raw log line and its provenance."""
+
+    _FIELDS = (
+        (1, "__version__", _STRING), (2, "logID", _STRING), (3, "log", _STRING),
+        (4, "logSource", _STRING), (5, "hostname", _STRING),
+    )
+
+
 class ParserSchema(BaseSchema):
     """Parser output: template + extracted variables for one log line."""
 
@@ -383,5 +394,17 @@ class DetectorSchema(BaseSchema):
         (5, "detectionTimestamp", _INT32), (6, "logIDs", _REP_STRING),
         (8, "score", _FLOAT), (9, "extractedTimestamps", _REP_INT32),
         (10, "description", _STRING), (11, "receivedTimestamp", _INT32),
+        (12, "alertsObtain", _MAP),
+    )
+
+
+class OutputSchema(BaseSchema):
+    """Aggregated output record: the alerts of one group."""
+
+    _FIELDS = (
+        (1, "__version__", _STRING), (2, "detectorIDs", _REP_STRING),
+        (3, "detectorTypes", _REP_STRING), (4, "alertIDs", _REP_STRING),
+        (5, "outputTimestamp", _INT32), (6, "logIDs", _REP_STRING),
+        (9, "extractedTimestamps", _REP_INT32), (10, "description", _STRING),
         (12, "alertsObtain", _MAP),
     )

@@ -3,43 +3,39 @@ versions of the port side by side on one CUDA card.
 
     python3 scripts/coalesce_ab_torch.py [--reps N] [--profile-first | --profile-between]
                                          [--gc-log] [--loop-log] [--probe]
-                                         [--switch-interval-ms MS] [--lifecycle] [ROOT ...]
+                                         [--lifecycle | --trace] [ROOT ...]
 
 Each ROOT is a checkout of the repo (default: the repo root), for example a
 parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. Each runs in a process of its own, in the order
-given (list them as parent, change, change, parent to see the spread): it
-builds the fused head and runs ``chip_smoke.coalesce_service`` of that
-checkout ``--reps`` times (the example hosted by the port's Service, 65,536
-single messages from a sender process, 64 lone messages), and prints one
-JSON line per run with the largest and mean release wait, the releases,
-the socket lines/s and the lone p50. A run whose own checks fail still
-prints its line (its ``failed`` field says why). With ``--profile-first``
-each process first takes a 1 s ``utils/profiling.PROFILER`` capture of
-CPU and CUDA activity over a loop of small kernels (a checkout that has
-the profiler), to see whether a finished capture leaves a cost behind;
-with ``--profile-between`` it runs ``--reps`` before the capture and
-``--reps`` after it, in the same process.
-With ``--gc-log`` each run also logs the interpreter's garbage collections
-(``gc.callbacks``) and every coalesced release's wait on the host's
-monotonic clock, and reports the collections by generation, the longest
-pause, and for the 5 longest waits the collection time inside each wait.
-With ``--loop-log`` it logs the engine loop's socket receives (entry,
-return, the timeout set) and its processor calls, and reports for the 5
-longest waits where the loop's time inside each went: blocked in a
-receive past its timeout, inside processor calls, or between calls (the
-interpreter lock, the loop's own Python), and the longest wait's events in
-order (ms from the oldest row's arrival). ``--probe`` runs a thread that
-sleeps 1 ms at a time and logs how late each wake-up came, and reports the
-latest wake-up inside each of the 5 longest waits: a late probe says the
-whole interpreter (its lock, or the process's CPU time) was held up, an
-on-time one that only the engine loop was. ``--switch-interval-ms`` sets
-the interpreter's thread switch interval (``sys.setswitchinterval``; 5 ms
-by default) in the measuring process. Each line also carries the host's
-CPU count, the process's CPU affinity and the load average before and
-after. ``--lifecycle`` runs ``chip_smoke.lifecycle_service`` (phase 14)
-instead and reports its largest wait outside and inside the cycles.
-Imports nothing of JAX.
+given (list them as parent, change, change, parent to see the spread; list
+one root 8 times for 8 fresh processes): it builds the fused head and runs
+``chip_smoke.coalesce_service`` of that checkout ``--reps`` times (the
+example hosted by the port's Service, 65,536 single messages from a sender
+process, 64 lone messages), and prints one JSON line per run with the
+largest and mean release wait, the releases, the socket lines/s and the
+lone p50. ``--lifecycle`` runs ``chip_smoke.lifecycle_service`` (phase 14)
+and ``--trace`` ``chip_smoke.trace_pipeline`` (phase 15) instead; their
+largest wait is the one outside the cycles (the capture). A run whose own
+checks fail still prints its line (its ``failed`` field says why).
+
+Diagnostics, each optional: ``--profile-first`` takes a 1 s profiler
+capture first (``--profile-between``: between two sets of ``--reps``);
+``--gc-log`` logs the interpreter's garbage collections and the collection
+time inside the 5 longest waits; ``--loop-log`` logs the engine loop's
+work segment by segment (the receive at the top of the loop, the burst and
+its ``recv_many``, the featurize, the pump with its upload, replay,
+capture and readback, each drained batch and its landed-scores query, the
+send, the trace finalization) and reports, for the 5 longest waits and
+every wait over 12 ms, the milliseconds of each segment inside the wait,
+the receives' time past their timeouts, the loop's own Python between
+calls, and, for an over-bound wait, each loop iteration's segments;
+``--probe`` runs a thread that sleeps 1 ms at a time and times how long
+each wake waited for the interpreter lock; a wait of 2 ms or more, or a
+wake 3 ms late or more, notes where every thread was (which thread held
+the interpreter meanwhile). Each line also carries the host's CPU count,
+the process's CPU affinity, the load average and the caching host
+allocator's counts before and after. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -119,40 +115,79 @@ class _GcLog:
 
 
 class _LoopLog:
-    """The engine loop thread's receives and processor calls, and the
-    coalesced releases, on the monotonic clock."""
+    """The engine loop thread's work, segment by segment, and the coalesced
+    releases, on the monotonic clock. Each logged call records its start,
+    end and exclusive time (its own time less that of the logged calls
+    inside it): the socket receive at the top of the loop (``recv``), the
+    burst collection (``burst``, its receives included), the detector's
+    frame featurize (``featurize``), the coalescer pump (``pump``, its
+    dispatches included), each drained batch (``drain``), the fan-out
+    (``send``), the trace finalization and queued admin calls; the
+    processor calls around them (``process_frames``, ``drain_ready``, ...)
+    keep the rest of their time."""
+
+    SEGMENTS = ("recv", "burst", "featurize", "pump", "drain", "send")
 
     def __init__(self, detector_cls):
         import threading
         import time
 
         from detectmateservice_tpu_torch import core
+        from detectmateservice_tpu_torch.engine import engine as engine_mod
         from detectmateservice_tpu_torch.engine import socket as sock_mod
+        from detectmateservice_tpu_torch.utils import matchkern
 
         self.events, self.waits = [], []
         self._undo = []
+        self._stack = []
         log, clock = self, time.monotonic
 
-        def patch(cls, name, kind):
-            original = getattr(cls, name)
+        def patch(owner, name, kind, on_loop=True):
+            original = getattr(owner, name, None)
+            if original is None:  # a checkout without this seam
+                return
+            is_module = not isinstance(owner, type)
 
-            def wrapped(obj, *args, **kwargs):
-                if threading.current_thread().name != "EngineLoop":
-                    return original(obj, *args, **kwargs)
+            def wrapped(*args, **kwargs):
+                if on_loop and threading.current_thread().name != "EngineLoop":
+                    return original(*args, **kwargs)
                 t0 = clock()
+                log._stack.append(0.0)
                 try:
-                    return original(obj, *args, **kwargs)
+                    return original(*args, **kwargs)
                 finally:
+                    t1 = clock()
+                    inner = log._stack.pop()
+                    if log._stack:
+                        log._stack[-1] += t1 - t0
+                    obj = None if is_module else args[0]
                     timeout = getattr(obj, "recv_timeout", None) if kind == "recv" else None
-                    log.events.append((t0, clock(), kind, timeout))
+                    log.events.append((t0, t1, kind, timeout, (t1 - t0) - inner,
+                                       len(log._stack)))
 
-            setattr(cls, name, wrapped)
-            self._undo.append((cls, name, original))
+            setattr(owner, name, wrapped)
+            self._undo.append((owner, name, original))
 
         patch(sock_mod.ZmqPairSocket, "recv", "recv")
         patch(sock_mod.ZmqPairSocket, "recv_many", "recv_many")
+        patch(engine_mod.Engine, "_collect_burst", "burst")
+        patch(engine_mod.Engine, "_send_results", "send")
+        patch(engine_mod.Engine, "_finalize_traces", "finalize")
+        patch(engine_mod.Engine, "_run_calls", "calls")
         for name in ("process_batch", "_process_frames", "drain_ready", "flush"):
             patch(core.LibraryComponentProcessor, name, name.lstrip("_"))
+        patch(matchkern, "featurize_frames", "featurize")
+        patch(detector_cls, "_coalesce_pump", "pump")
+        patch(detector_cls, "_drain_one", "drain")
+        # inside the pump and the drain: the pinned upload, the graph replay
+        # (a capture on a bucket's first use apart), the score readback, the
+        # landed-scores query
+        from detectmateservice_tpu_torch.library.detectors import graphs as graphs_mod
+        patch(detector_cls, "_host_tokens", "upload")
+        patch(detector_cls, "_readback", "readback")
+        patch(detector_cls, "_head_ready", "query")
+        patch(graphs_mod.WarmSet, "run", "replay")
+        patch(graphs_mod.WarmSet, "capture", "capture")
         release = detector_cls._release_coalesced
 
         def recording(det, n, reason, now):
@@ -162,49 +197,90 @@ class _LoopLog:
         detector_cls._release_coalesced = recording
         self._undo.append((detector_cls, "_release_coalesced", release))
 
-    def close(self) -> dict:
-        for cls, name, original in reversed(self._undo):
-            setattr(cls, name, original)
-        out = []
-        for now, wait in sorted(self.waits, key=lambda w: w[1])[-5:]:
-            a = now - wait
-            inside = [e for e in self.events if e[1] > a and e[0] < now]
-            busy = {"recv_overslept_ms": 0.0, "recv_ms": 0.0, "calls_ms": 0.0}
-            covered = 0.0
-            for t0, t1, kind, timeout in inside:
-                span = min(t1, now) - max(t0, a)
+    def window(self, a: float, b: float) -> dict:
+        """The loop's time in [a, b]: exclusive ms by kind, the receives'
+        time past their timeouts, and the time no logged call covered
+        (the loop's own Python between calls)."""
+        by_kind, covered, overslept, n = {}, 0.0, 0.0, 0
+        for t0, t1, kind, timeout, excl, depth in self.events:
+            if t1 <= a or t0 >= b:
+                continue
+            n += 1
+            span = min(t1, b) - max(t0, a)
+            share = span * (excl / (t1 - t0)) if t1 > t0 else 0.0
+            by_kind[kind] = by_kind.get(kind, 0.0) + share * 1e3
+            if depth == 0:
                 covered += span
-                if kind in ("recv", "recv_many"):
-                    busy["recv_ms"] += span * 1e3
-                    if kind == "recv" and timeout:
-                        busy["recv_overslept_ms"] += max(0.0, (t1 - t0) - timeout / 1e3) * 1e3
-                else:
-                    busy["calls_ms"] += span * 1e3
-            out.append(dict(wait_ms=wait * 1e3, between_ms=(wait - covered) * 1e3,
-                            events=len(inside), **busy))
-        slowest = max(self.waits, key=lambda w: w[1]) if self.waits else None
-        timeline = []
-        if slowest is not None:
-            now, wait = slowest
-            a = now - wait
-            # the slowest wait's loop events, ms from the oldest row's arrival
-            timeline = [[round((t0 - a) * 1e3, 3), round((t1 - a) * 1e3, 3), kind]
-                        for t0, t1, kind, _ in self.events if t1 > a and t0 < now][:60]
-        return {"slowest_waits": out, "slowest_timeline": timeline}
+            if kind == "recv" and timeout:
+                overslept += max(0.0, (t1 - t0) - timeout / 1e3) * 1e3
+        return {"segments_ms": {k: round(v, 3) for k, v in sorted(by_kind.items())},
+                "recv_overslept_ms": round(overslept, 3),
+                "between_ms": round(((b - a) - covered) * 1e3, 3), "events": n}
+
+    def iterations(self, a: float, b: float) -> list:
+        """The loop iterations (top-level receive to the next one) that
+        overlap [a, b], each as ms per segment kind."""
+        tops = sorted(e for e in self.events if e[5] == 0)
+        starts = [e[0] for e in tops if e[2] == "recv"]
+        out = []
+        for i, s in enumerate(starts):
+            e = starts[i + 1] if i + 1 < len(starts) else s + 1.0
+            if e <= a or s >= b:
+                continue
+            seg = {}
+            for t0, t1, kind, _, excl, _ in self.events:
+                if s <= t0 < e:
+                    seg[kind] = round(seg.get(kind, 0.0) + excl * 1e3, 3)
+            out.append({"start_ms": round((s - a) * 1e3, 3),
+                        "ms": round((e - s) * 1e3, 3), "segments_ms": seg})
+        return out
+
+    def close(self, bound_s: float = 0.012) -> dict:
+        for owner, name, original in reversed(self._undo):
+            setattr(owner, name, original)
+        self.events.sort()
+        picked = sorted(self.waits, key=lambda w: w[1])[-5:]
+        picked += [w for w in self.waits if w[1] > bound_s and w not in picked]
+        out = []
+        for now, wait in sorted(picked, key=lambda w: w[1]):
+            doc = dict(wait_ms=wait * 1e3, end=now, **self.window(now - wait, now))
+            if wait > bound_s:
+                doc["iterations"] = self.iterations(now - wait, now)
+            out.append(doc)
+        # the usual wait's segments, for comparison: the median wait's window
+        usual = None
+        if self.waits:
+            now, wait = sorted(self.waits, key=lambda w: w[1])[len(self.waits) // 2]
+            usual = dict(wait_ms=wait * 1e3, **self.window(now - wait, now))
+        return {"slowest_waits": out, "median_wait": usual}
 
 
 class _Probe:
-    """A thread that sleeps 1 ms at a time, logging (wake-up, lateness);
-    a wake-up 3 ms late or more also logs where every other thread was
-    (``sys._current_frames``: the innermost frame of the package or the
-    script, else the innermost)."""
+    """A thread that, every 1 ms, reads the monotonic clock through a
+    foreign call (ctypes releases the interpreter around it) and again in
+    Python once it holds the interpreter back: the gap is how long it
+    waited for the interpreter lock. It also logs how late its 1 ms sleep
+    woke (the timer's lateness plus that lock wait). A lock wait of 2 ms
+    or more, or a wake 3 ms late or more, logs where every other thread
+    was (``sys._current_frames``: the innermost frame of the package or the
+    script, else the innermost); the thread that held the lock shows in
+    Python code, the others at their blocking calls."""
 
     def __init__(self):
+        import ctypes
         import threading
         import time
 
         self.wakes, self.stalls, self._stop = [], [], threading.Event()
         self._time, self._threading = time, threading
+
+        class _Timespec(ctypes.Structure):
+            _fields_ = [("tv_sec", ctypes.c_long), ("tv_nsec", ctypes.c_long)]
+
+        libc = ctypes.CDLL(None, use_errno=True)
+        self._gettime, self._ts = libc.clock_gettime, _Timespec()
+        self._gettime.argtypes = [ctypes.c_int, ctypes.POINTER(_Timespec)]
+        self._ts_ref = ctypes.byref(self._ts)
         self._thread = threading.Thread(target=self._run, name="WakeProbe", daemon=True)
         self._thread.start()
 
@@ -221,10 +297,19 @@ class _Probe:
                     pick = f
                     break
                 f = f.f_back
-            out[names.get(ident, str(ident))] = (
-                f"{os.path.basename(pick.f_code.co_filename)}:{pick.f_lineno} "
-                f"{pick.f_code.co_name}")
+            inner = (f"{os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno} "
+                     f"{frame.f_code.co_name}")
+            where = (f"{os.path.basename(pick.f_code.co_filename)}:{pick.f_lineno} "
+                     f"{pick.f_code.co_name}")
+            out[names.get(ident, str(ident))] = where if pick is frame else f"{where} < {inner}"
         return out
+
+    def _gil_wait(self) -> float:
+        """Seconds from a clock read outside the interpreter lock to the
+        next read inside it."""
+        self._gettime(1, self._ts_ref)  # CLOCK_MONOTONIC, as time.monotonic
+        after = self._time.monotonic()
+        return max(0.0, after - (self._ts.tv_sec + self._ts.tv_nsec * 1e-9))
 
     def _run(self) -> None:
         clock, sleep = self._time.monotonic, self._time.sleep
@@ -233,31 +318,42 @@ class _Probe:
             sleep(0.001)
             t1 = clock()
             late = t1 - t0 - 0.001
-            self.wakes.append((t1, late))
-            if late >= 0.003:
-                self.stalls.append((t1, late, self._where()))
+            gil = self._gil_wait()
+            self.wakes.append((t1, late, gil))
+            if late >= 0.003 or gil >= 0.002:
+                self.stalls.append((t1, late, gil, self._where()))
 
-    def close(self, waits) -> dict:
+    def close(self, waits, bound_s: float = 0.012) -> dict:
         self._stop.set()
         self._thread.join(5)
         late = sorted(w[1] for w in self.wakes)
+        gil = sorted(w[2] for w in self.wakes)
+        picked = sorted(waits, key=lambda w: w[1])[-5:]
+        picked += [w for w in waits if w[1] > bound_s and w not in picked]
         out = []
-        for now, wait in sorted(waits, key=lambda w: w[1])[-5:]:
-            inside = [lat for t, lat in self.wakes if now - wait <= t <= now + 0.002]
-            stalls = [{"late_ms": round(lat * 1e3, 2), "threads": where}
-                      for t, lat, where in self.stalls if now - wait <= t <= now + 0.002]
+        for now, wait in sorted(picked, key=lambda w: w[1]):
+            inside = [(lat, g) for t, lat, g in self.wakes if now - wait <= t <= now + 0.002]
+            stalls = [{"late_ms": round(lat * 1e3, 2), "gil_ms": round(g * 1e3, 2),
+                       "threads": where}
+                      for t, lat, g, where in self.stalls if now - wait <= t <= now + 0.002]
             out.append({"wait_ms": wait * 1e3,
-                        "probe_latest_ms": max(inside) * 1e3 if inside else None,
-                        "stalls": stalls[:3]})
-        pick = (lambda q: late[min(len(late) - 1, int(q * len(late)))] * 1e3) if late else None
-        # every late wake-up of the run: where each other thread was
-        holders = Counter(f"{name} @ {where}" for _, _, threads in self.stalls
+                        "probe_latest_ms": max(i[0] for i in inside) * 1e3 if inside else None,
+                        "probe_gil_ms": max(i[1] for i in inside) * 1e3 if inside else None,
+                        "probe_gil_sum_ms": sum(i[1] for i in inside) * 1e3,
+                        "stalls": stalls[:4]})
+
+        def pick(xs, q):
+            return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 if xs else None
+
+        # every stall of the run: where each other thread was
+        holders = Counter(f"{name} @ {where}" for _, _, _, threads in self.stalls
                           for name, where in threads.items())
         return {"wakes": len(late), "stalls": len(self.stalls),
-                "stall_threads": holders.most_common(12),
-                "p50_late_ms": pick(0.5) if late else None,
-                "p999_late_ms": pick(0.999) if late else None,
-                "max_late_ms": late[-1] * 1e3 if late else None, "slowest_waits": out}
+                "stall_threads": holders.most_common(16),
+                "p50_late_ms": pick(late, 0.5), "p999_late_ms": pick(late, 0.999),
+                "max_late_ms": pick(late, 1.0), "p50_gil_ms": pick(gil, 0.5),
+                "p99_gil_ms": pick(gil, 0.99), "p999_gil_ms": pick(gil, 0.999),
+                "max_gil_ms": pick(gil, 1.0), "slowest_waits": out}
 
 
 def _host() -> dict:
@@ -271,9 +367,21 @@ def _host() -> dict:
             "process_threads": len(os.listdir("/proc/self/task"))}
 
 
+def _pinned_stats() -> dict:
+    """The caching host allocator's counts (pinned host blocks allocated
+    and freed), where this torch has them."""
+    import torch
+
+    try:
+        stats = torch.cuda.host_memory_stats()
+    except (AttributeError, RuntimeError):
+        return {}
+    return {k: v for k, v in stats.items() if "alloc" in k or "free" in k}
+
+
 def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
             between: bool = False, lifecycle: bool = False, loop_log: bool = False,
-            probe: bool = False, switch_ms: float = 0.0) -> int:
+            probe: bool = False, trace: bool = False) -> int:
     sys.path.insert(0, root)
     os.chdir(root)
     import io
@@ -287,8 +395,6 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
         return 2
     _, smi = chip_smoke.phase_card()
     chip_smoke.phase_build()
-    if switch_ms > 0:
-        sys.setswitchinterval(switch_ms / 1e3)
     captured = _capture_first() if profile_first else None
     for rep in range(2 * reps if between else reps):
         if between and rep == reps:
@@ -297,6 +403,7 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
         failed = None
         out = io.StringIO()
         host0 = _host()
+        pinned0 = _pinned_stats()
         log = _GcLog(chip_smoke.TorchScorerDetector) if gc_log else None
         loop = _LoopLog(chip_smoke.TorchScorerDetector) if loop_log else None
         waker = _Probe() if probe else None
@@ -304,6 +411,8 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
             with redirect_stdout(out):
                 if lifecycle:
                     chip_smoke.lifecycle_service(chip_smoke.Path(tmp), smi, "cuda")
+                elif trace:
+                    chip_smoke.trace_pipeline(chip_smoke.Path(tmp), smi, None, "cuda")
                 else:
                     chip_smoke.coalesce_service(chip_smoke.Path(tmp) / "a", smi, "cuda")
         except AssertionError as exc:
@@ -316,19 +425,20 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
             gc_doc = dict(gc_doc or {}, loop=loop.close())
         if waker is not None:
             gc_doc = dict(gc_doc or {}, probe=waker.close(waits))
-        phase = "lifecycle" if lifecycle else "coalesce"
+        phase = "lifecycle" if lifecycle else "trace" if trace else "coalesce"
         line = [json.loads(x) for x in out.getvalue().splitlines()
                 if x.startswith('{"phase": "%s"' % phase)]
         doc = line[-1] if line else {}
-        if lifecycle and doc:
+        if (lifecycle or trace) and doc:
             waits = doc["release_wait_ms"]
+            lone = doc["lone_p50_ms"]
             doc = dict(doc, max_release_wait_ms=waits["outside_max"],
                        mean_release_wait_ms=waits["inside_max"],
-                       lone_p50_ms=doc["lone_p50_ms"]["outside"])
+                       lone_p50_ms=lone["outside"] if isinstance(lone, dict) else lone)
         print(json.dumps({"root": root, "rep": rep, "card": smi, "failed": failed,
                           "profiled_first": captured, "gc": gc_doc,
-                          "switch_interval_ms": sys.getswitchinterval() * 1e3,
                           "host": {"before": host0, "after": _host()},
+                          "pinned_allocs": {"before": pinned0, "after": _pinned_stats()},
                           **{k: doc.get(k) for k in (
                               "max_release_wait_ms", "mean_release_wait_ms",
                               "releases", "socket_lines_per_s", "lone_p50_ms")}}),
@@ -346,7 +456,7 @@ def main(argv: list) -> int:
     parser.add_argument("--lifecycle", action="store_true")
     parser.add_argument("--loop-log", action="store_true")
     parser.add_argument("--probe", action="store_true")
-    parser.add_argument("--switch-interval-ms", type=float, default=0.0)
+    parser.add_argument("--trace", action="store_true")
     parser.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("roots", nargs="*")
     args = parser.parse_args(argv)
@@ -354,12 +464,12 @@ def main(argv: list) -> int:
     if args.one:
         return measure(roots[0], args.reps, args.profile_first, args.gc_log,
                        args.profile_between, args.lifecycle, args.loop_log, args.probe,
-                       args.switch_interval_ms)
+                       args.trace)
     rc = 0
     extra = ([f"--{name.replace('_', '-')}" for name in (
-        "profile_first", "profile_between", "gc_log", "lifecycle", "loop_log", "probe")
+        "profile_first", "profile_between", "gc_log", "lifecycle", "loop_log", "probe",
+        "trace")
         if getattr(args, name)])
-    extra += ["--switch-interval-ms", str(args.switch_interval_ms)]
     for root in roots:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                               "--reps", str(args.reps), *extra, root], check=False,

@@ -12,13 +12,15 @@ held against the JAX package's (``tests/test_batching.py``'s cases):
   back-pressure, a queue wait that includes the hold;
 * retirement, pad-up and resurrection through one expected capture;
 * the engine honours ``drain_poll_ms`` (also through the port's Service)
-  and ``flush_final`` drains held rows;
+  and ``flush_final`` drains held rows; a burst ends when held rows fall
+  due, and over its zmq transport the alerts keep the JAX engine's order;
 * upload workers: outputs identical to inline dispatch; a failed dispatch
   is counted for its rows, emits nothing, and the loop lives on;
 * ``examples/scorer_config.yaml`` and ``examples/scorer_settings.yaml``
   build a port detector and start a port Service on the CPU.
 """
 import time
+import uuid
 from pathlib import Path
 
 import jax
@@ -35,7 +37,8 @@ from detectmateservice_tpu.schemas import ParserSchema as RefParserSchema
 from detectmateservice_tpu_torch.core import Service
 from detectmateservice_tpu_torch.engine import device_obs
 from detectmateservice_tpu_torch.engine.engine import Engine
-from detectmateservice_tpu_torch.engine.socket import InprocQueueSocketFactory
+from detectmateservice_tpu_torch.engine.socket import (
+    InprocQueueSocketFactory, TransportTimeout, ZmqPairSocketFactory)
 from detectmateservice_tpu_torch.library.detectors import TorchScorerDetector
 from detectmateservice_tpu_torch.library.detectors.torch_scorer import (
     _BatchCoalescer,
@@ -62,6 +65,12 @@ def msg(i: int) -> bytes:
         EventID=1, template="user <*> logged in from <*>",
         variables=[f"u{i % 8}", f"10.0.{i % 7}.{i % 16}"], logID=str(i),
         logFormatVariables={"Time": str(1_700_000_000 + i)}).serialize()
+
+
+def _unpack(frame):
+    from detectmateservice_tpu_torch.engine.framing import unpack_batch
+
+    return unpack_batch(frame)
 
 
 def alert_ids(outs, schema=DetectorSchema) -> list:
@@ -512,6 +521,132 @@ class TestEngineDeferredOutputs:
             assert client.recv() == b"STUCK-ROW"
         finally:
             client.close()
+
+    @pytest.mark.parametrize("frame_batch", [1, 16])
+    def test_alerts_leave_in_the_jax_engines_order(self, frame_batch):
+        """The coalescing detector (every message alerts) hosted by the
+        port's engine and by the JAX engine on the same frames: the same
+        alerts in the same order, the stream's."""
+        import prometheus_client
+
+        from detectmateservice_tpu.engine import Engine as RefEngine
+        from detectmateservice_tpu.engine.socket import InprocQueueSocketFactory as RefInproc
+        from detectmateservice_tpu.settings import ServiceSettings as RefSettings
+        from detectmateservice_tpu_torch.engine import metrics as port_metrics
+        from detectmateservice_tpu_torch.engine.framing import pack_batch
+        from test_torch_engine import _drive
+
+        frames = []
+        for start in range(0, 400, 40):
+            chunk = [msg(5000 + start + j) for j in range(40)]
+            frames += [pack_batch(chunk[:24])] + chunk[24:]
+        kw = dict(engine_batch_size=64, engine_frame_batch=frame_batch)
+        outs = {}
+        for name, engine_cls, settings_cls, factory, registry in (
+                ("jax", RefEngine, RefSettings, RefInproc(), prometheus_client.REGISTRY),
+                ("port", Engine, ServiceSettings, InprocQueueSocketFactory(),
+                 port_metrics.REGISTRY)):
+            det = port_detector(batch_deadline_ms=20.0)
+            got, _ = _drive(engine_cls, settings_cls, factory, registry, det, frames, **kw)
+            outs[name] = alert_ids([m for f in got for m in (_unpack(f) or [f])])
+        assert outs["port"] == outs["jax"] == list(range(5000, 5400))
+
+    def test_a_burst_ends_when_rows_held_from_before_it_fall_due(self):
+        """A deliberate difference from the JAX engine (ROADMAP.md's
+        register): a burst lasts ``engine_batch_timeout_ms`` unless rows
+        held from before it fall due sooner; then it ends at their due
+        time, so the pump that releases them is not a burst late."""
+        now = time.monotonic()
+        assert Engine._burst_deadline(0.5, None) >= now + 0.5
+        assert Engine._burst_deadline(0.5, now + 0.010) == now + 0.010
+        assert Engine._burst_deadline(0.001, now + 60.0) < now + 1.0
+
+        factory = ZmqPairSocketFactory()
+        addr = f"inproc://tb-burst-{uuid.uuid4().hex[:8]}"
+        proc = HoldingProcessor(ticks_to_release=10**9)
+        proc.drain_due_in_ms = lambda: 0.0 if proc.held else None
+        batches = []
+        hold = proc.process_batch
+
+        def process_batch(batch):
+            batches.append((time.monotonic(), list(batch)))
+            return hold(batch)
+
+        proc.process_batch = process_batch
+        engine = Engine(_engine_settings(addr, engine_batch_timeout_ms=3000.0), proc, factory)
+        client = factory.create_output(addr)
+        try:
+            engine.start()
+            client.send(b"first")
+            assert wait_until(lambda: proc.held, 10.0)   # its burst waited out
+            t_sent = time.monotonic()
+            client.send(b"second")
+            assert wait_until(lambda: len(batches) == 2, 2.0)
+            assert batches[1][1] == [b"second"] and batches[1][0] - t_sent < 1.0
+        finally:
+            engine.stop()
+            client.close()
+
+    @pytest.mark.parametrize("frame_batch", [1, 16])
+    def test_alerts_leave_in_the_jax_engines_order_over_zmq(self, frame_batch):
+        """As the test above, with the port's engine on its zmq transport,
+        where bursts end when held rows fall due: the same alerts in the
+        same order as the JAX engine's."""
+        import prometheus_client
+
+        from detectmateservice_tpu.engine import Engine as RefEngine
+        from detectmateservice_tpu.engine.socket import InprocQueueSocketFactory as RefInproc
+        from detectmateservice_tpu.settings import ServiceSettings as RefSettings
+        from detectmateservice_tpu_torch.engine.framing import pack_batch
+        from test_torch_engine import _drive
+
+        frames = []
+        for start in range(0, 400, 40):
+            chunk = [msg(5000 + start + j) for j in range(40)]
+            frames += [pack_batch(chunk[:24])] + chunk[24:]
+        kw = dict(engine_batch_size=64, engine_frame_batch=frame_batch)
+        got, _ = _drive(RefEngine, RefSettings, RefInproc(), prometheus_client.REGISTRY,
+                        port_detector(batch_deadline_ms=20.0), frames, **kw)
+        want = alert_ids([m for f in got for m in (_unpack(f) or [f])])
+
+        factory = ZmqPairSocketFactory()
+        name = f"tb-{uuid.uuid4().hex[:8]}"
+        sink = factory.create(f"inproc://{name}-out")
+        sender = factory.create_output(f"inproc://{name}-in", buffer_size=4096)
+        det = port_detector(batch_deadline_ms=20.0)
+        # bursts longer than the hold, so held rows fall due inside them
+        engine = Engine(_engine_settings(f"inproc://{name}-in", out_addr=[f"inproc://{name}-out"],
+                                         engine_batch_timeout_ms=50.0, **kw), det, factory)
+        cut = []
+        burst_deadline = engine._burst_deadline
+
+        def deadline(timeout_s, held_until):
+            end = burst_deadline(timeout_s, held_until)
+            cut.append(held_until is not None and end == held_until)
+            return end
+
+        engine._burst_deadline = deadline
+        outs = []
+        sink.recv_timeout = 100
+        try:
+            engine.start()
+            time.sleep(0.2)  # the dial completes before frames are sent
+            for frame in frames:
+                sender.send(frame)
+            deadline = time.monotonic() + 20.0
+            while sum(len(_unpack(f) or [f]) for f in outs) < 400 and \
+                    time.monotonic() < deadline:
+                try:
+                    outs.append(sink.recv())
+                except TransportTimeout:
+                    pass
+        finally:
+            engine.stop()
+            sender.close()
+            sink.close()
+        assert any(cut), "no burst ended at a due time"
+        assert alert_ids([m for f in outs for m in (_unpack(f) or [f])]) == want \
+            == list(range(5000, 5400))
 
     def test_the_service_hands_the_detector_hint_to_the_engine(self):
         """Through the port's Service: the hosted coalescing detector's

@@ -794,3 +794,60 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys):
     # the counts restart before (b) and before (c); the checks beside the
     # paths run uncounted
     assert stand_in.launches >= seq["launches"]
+
+
+def test_pipeline_files_change_only_what_the_phase_names(tmp_path):
+    """The demo stack's settings and configs as written but the detector's
+    class and head, the addresses, the HTTP ports and the paths."""
+    import yaml
+
+    files = chip_smoke.pipeline_files(tmp_path)
+    conf = REPO / "container" / "config"
+    changed = {"engine_addr", "out_addr", "http_host", "http_port", "config_file"}
+    for stage, path in files.items():
+        got = yaml.safe_load(path.read_text())
+        want = yaml.safe_load((conf / f"{stage}_settings.yaml").read_text())
+        extra = {"component_type", "checkpoint_dir"} if stage == "detector" else set()
+        assert {k for k in set(got) | set(want) if got.get(k) != want.get(k)} \
+            <= changed | extra
+        cfg = yaml.safe_load((tmp_path / f"{stage}_config.yaml").read_text())
+        if stage == "detector":
+            block = cfg["detectors"]["TorchScorerDetector"]
+            jax = yaml.safe_load((conf / "detector_config.yaml").read_text())[
+                "detectors"]["JaxScorerDetector"]
+            assert block == dict(jax, method_type="torch_scorer", head_impl="pallas")
+            assert got["component_type"] == chip_smoke.TORCH_SCORER
+    assert yaml.safe_load(files["parser"].read_text())["out_addr"][1].endswith("tap.ipc")
+
+
+def test_audit_log_is_seeded_and_holds_its_anomalies_past_the_fit():
+    lines, anomalies = chip_smoke.make_audit_log(64, 1024)
+    again, _ = chip_smoke.make_audit_log(64, 1024)
+    assert lines == again and len(lines) == 1088
+    assert anomalies and min(anomalies) >= 64
+    assert all(any(exe in lines[i] for _, exe, _ in chip_smoke.AUDIT_ANOMALOUS)
+               for i in anomalies)
+    assert not any(exe in line for i, line in enumerate(lines) if i not in anomalies
+                   for _, exe, _ in chip_smoke.AUDIT_ANOMALOUS)
+
+
+def test_pipeline_phase_on_the_cpu(monkeypatch, capsys):
+    """The pipeline phase at a narrowed detector width with the plain head:
+    the four stages as port CLI processes, every line read by every stage,
+    parser outputs equal to the plain path, recall, no flip against the
+    einsum head on the shutdown checkpoint, a profiler capture of the
+    detector's process, and every exit code 0."""
+    import json
+
+    monkeypatch.setattr(chip_smoke, "PIPELINE_DETECT", 4096)
+    result = chip_smoke.phase_pipeline("cpu", device="cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"phase"')]
+    assert [line["phase"] for line in lines] == ["pipeline"]
+    assert result["stage_lines"]["reader"]["read"] == result["lines_sent"] == 2048 + 4096
+    assert result["parser_outputs"] == result["lines_sent"] and result["parser_mismatches"] == 0
+    assert result["recall"] >= 0.9 and result["alerts"] == result["unique_alerts"]
+    assert result["decision_flips"] == 0 or max(result["flip_distances"]) < 1e-2
+    assert result["profile"]["last"]["state"] == "done"
+    assert set(result["exits"].values()) == {0} and result["detector_exit"] == 0
+    assert result["head_shapes"] and result["end_to_end_lines_per_s"] > 0

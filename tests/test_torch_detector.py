@@ -649,8 +649,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     metrics, health, the capture ledger, admin plane, CLI), its model
     lifecycle (rollout, drift, capacity), its observability plane (the
     flight recorder, telemetry, the profiler), its chip plane (the mesh, the
-    ring, the sharded scorer, the bootstrap), chip_smoke.py and
-    bench_torch.py load without any of the forbidden modules."""
+    ring, the sharded scorer, the bootstrap), the demo stack's reader,
+    parser and output, chip_smoke.py and bench_torch.py load without any of
+    the forbidden modules."""
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import detectmateservice_tpu_torch\n"
@@ -690,6 +691,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "import detectmateservice_tpu_torch.parallel.ring\n"
         "import detectmateservice_tpu_torch.parallel.sharded\n"
         "import detectmateservice_tpu_torch.parallel.distributed\n"
+        "import detectmateservice_tpu_torch.library.readers\n"
+        "import detectmateservice_tpu_torch.library.parsers\n"
+        "import detectmateservice_tpu_torch.library.outputs\n"
         "import chip_smoke\n"
         "import bench_torch\n"
         "print(' '.join(sorted(sys.modules)))\n")
@@ -714,7 +718,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for name in ("engine.tracing", "telemetry.spans", "telemetry.collector",
                  "telemetry.otlp", "telemetry.perfetto", "utils.profiling",
                  "parallel.mesh", "parallel.ring", "parallel.sharded",
-                 "parallel.distributed"):
+                 "parallel.distributed", "library.readers.log_file",
+                 "library.parsers.template_matcher", "library.outputs.file_sink"):
         assert f"detectmateservice_tpu_torch.{name}" in loaded
     assert "bench_torch" in loaded
 

@@ -387,7 +387,7 @@ def test_detector_without_a_device_refuses_to_start_without_cuda(short_dir, monk
     assert svc._torn_down and not svc.engine.running
 
 
-@pytest.mark.parametrize("component_type", ["parsers.template_matcher.MatcherParser",
+@pytest.mark.parametrize("component_type", ["detectors.new_value_detector.NewValueDetector",
                                             "detectmateservice_tpu.library.detectors."
                                             "jax_scorer.JaxScorerDetector"])
 def test_components_only_the_jax_library_holds_are_not_ported(short_dir, component_type):
