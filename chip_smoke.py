@@ -231,6 +231,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -321,6 +322,18 @@ COALESCE_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
 # the pipeline phase: container/config/'s demo stack, its detector the port's
 # scorer; raw audit lines go into the reader in frames of PIPELINE_FRAME
 PIPELINE_STAGES = ("reader", "parser", "detector", "output")
+# a stage that stops answering: the signal each stage process dumps every
+# thread's stack on (faulthandler, from its signal handler, so a thread
+# holding the interpreter does not stop it), and how long the phase waits
+# for the dumps
+PIPELINE_DUMP_SIGNAL = signal.SIGUSR1
+PIPELINE_DUMP_WAIT_S = 2.0
+# the stage processes: the port's CLI with that dump armed
+PIPELINE_STAGE_CODE = (
+    "import faulthandler, sys; "
+    f"faulthandler.register({int(PIPELINE_DUMP_SIGNAL)}, all_threads=True); "
+    "from detectmateservice_tpu_torch import cli; "
+    "sys.exit(cli.main(['--settings', sys.argv[1]]))")
 PIPELINE_FIT = 2048
 PIPELINE_DETECT = 65536
 PIPELINE_FRAME = 512
@@ -376,7 +389,10 @@ MESH_CALL = 8192
 # max |delta score| against one device: bf16 operands and fp32 sums on both
 # sides; only the rows' GEMM shapes and the head's split differ
 MESH_TOL = 1e-3
-# (c) examples/seqparallel_config.yaml as written: a fit, then 1,024 messages
+# (c) examples/seqparallel_config.yaml: a fit, then 1,024 messages; its
+# depth cut from 4 to 2 to make room for (f) and (g) in the script's time
+# (the ring's arithmetic is the same in every layer)
+MESH_SEQ_CUTS = {"depth": 2}
 MESH_SEQ_DETECT = 1024
 MESH_SEQ_CALL = 256
 MESH_SEQ_TOL = 2e-2        # the JAX package's sharded bound (tests/test_parallel.py)
@@ -385,6 +401,29 @@ MESH_ONE_DETECT = 4096
 # narrowed widths for a CPU rehearsal (tests/test_torch_chip_smoke.py)
 MESH_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
 MESH_SEQ_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
+# (f) and (g): the model axis computing (LogBERT's Megatron split): (f)
+# examples/mesh_scorer_config.yaml's widths on {data: 4, model: 2} (kernel
+# 1), the fit, then 8,192 messages in one call of max_batch; (g)
+# examples/seqparallel_config.yaml's widths with attn_impl flash (the three
+# flash kernels at H / 2 = 2 heads per shard) on {data: 2, model: 2}, the
+# fit, then 1,024 messages in calls of max_batch
+MESH_MODEL_SHAPE = {"data": 4, "model": 2}
+MESH_MODEL_DETECT = 8192
+MESH_MODEL_CALL = 8192
+MESH_MODEL_FLASH_SHAPE = {"data": 2, "model": 2}
+MESH_MODEL_FLASH_DETECT = 1024
+MESH_MODEL_FLASH_CALL = 256
+MESH_MODEL_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
+MESH_MODEL_FLASH_CPU_CHANGES = {"vocab_size": 1024, "dtype": "float32"}
+MESH_MODEL_REPS = 5
+# the bound on (f)'s bf16 positional z-scores (sigma floored at 0.05)
+# against one device. Any change of a sum's order flips a few bf16
+# roundings that the blocks carry on, so MESH_TOL holds only in fp32
+# (mesh_split_controls). The bound lies above one device's gap to itself
+# with its row-parallel sums reordered (the "reordered" control, which
+# must pass it) and below a swap of proj's two head halves (the "swapped"
+# control, which must fail it)
+MESH_MODEL_TOL = 0.5
 
 # (N, C, D, dtype) of the fused-head checks: the MLP path's detect, warm-up
 # and calibration buckets, the LogBERT path's detect batch and calibration
@@ -775,6 +814,13 @@ def _flash_inputs(b, h, s, t, d, dtype, mask_kind, gen, layout="contiguous"):
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen).to(dtype)
         q, k, v = (x.reshape(b, s, h, d).transpose(1, 2)
                    for x in qkv.split(h * d, dim=-1))
+    elif layout == "shard":
+        # the second of two model shards' heads, cut from the gathered
+        # [B, S, 3 (2 H) D] qkv (models/logbert.py LogBERTOverShards)
+        assert s == t
+        qkv = torch.randn(b, s, 6 * h * d, device="cuda", generator=gen).to(dtype)
+        q, k, v = (x[..., h * d:].reshape(b, s, h, d).transpose(1, 2)
+                   for x in qkv.split(2 * h * d, dim=-1))
     else:
         q = torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
         k = torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
@@ -3149,27 +3195,47 @@ def phase_mesh(smi: str, device: str = "cuda") -> dict:
     that repeats one device ``MESH_DEVICES`` times (``mesh.local_devices``
     replaced for the phase): (a) ring attention against the one-device
     blockwise attention, (b) BASELINE config #5, (c) the sequence-parallel
-    example, (d) a mesh of one, (e) a process group of one."""
-    ring = mesh_ring(device)
-    with _mesh_devices(device, MESH_DEVICES):
-        scorer = mesh_scorer(smi, device)
+    example, (d) a mesh of one, (e) a process group of one, (f) and (g) the
+    ``model`` axis computing: LogBERT's Megatron split with kernel 1, and
+    with the flash kernels on each model shard. Each part's seconds go
+    into ``parts_s``."""
+    parts_s = {}
+
+    def part(name: str, fn, *args, devices: int = 0):
+        # devices: the repeated device's count in the mesh (0: unpatched)
+        t0 = time.perf_counter()
+        if devices:
+            with _mesh_devices(device, devices):
+                out = fn(*args)
+            _empty_cache(device)
+        else:
+            out = fn(*args)
+        parts_s[name] = time.perf_counter() - t0
+        return out
+
+    ring = part("ring", mesh_ring, device)
+    scorer = part("scorer", mesh_scorer, smi, device, devices=MESH_DEVICES)
+    seqpar = part("seqparallel", mesh_seqparallel, smi, device, devices=MESH_DEVICES)
+    one = part("one", mesh_of_one, device, devices=1)
+    boot = part("bootstrap", mesh_bootstrap, device)
     _empty_cache(device)
-    with _mesh_devices(device, MESH_DEVICES):
-        seqpar = mesh_seqparallel(smi, device)
-    _empty_cache(device)
-    with _mesh_devices(device, 1):
-        one = mesh_of_one(device)
-    boot = mesh_bootstrap(device)
+    model = part("model", mesh_model, smi, device,
+                 devices=int(np.prod(list(MESH_MODEL_SHAPE.values()))))
+    model_flash = part("model_flash", mesh_model_flash, smi, device,
+                       devices=int(np.prod(list(MESH_MODEL_FLASH_SHAPE.values()))))
     result = dict(card=smi, ring=ring, scorer=scorer, seqparallel=seqpar, one=one,
-                  bootstrap=boot,
+                  bootstrap=boot, model=model, model_flash=model_flash, parts_s=parts_s,
                   launches=scorer["launches"] + seqpar["launches"],
                   replayed_launches={"candidate_lse": scorer["replayed_launches"]["candidate_lse"]
                                      + seqpar["replayed_launches"]["candidate_lse"]},
                   variants=dict(Counter(scorer["variants"]) + Counter(seqpar["variants"])),
                   head_max_abs_err=max(r["max_abs_err"] for r in
-                                       scorer["head_checks"] + seqpar["head_checks"]))
+                                       scorer["head_checks"] + seqpar["head_checks"]
+                                       + model["head_checks"] + model_flash["head_checks"]),
+                  flash_max_abs_err=model_flash["flash_max_abs_err"])
     emit("mesh", **{k: v for k, v in result.items()
-                    if k not in ("ring", "scorer", "seqparallel", "one", "bootstrap")})
+                    if k not in ("ring", "scorer", "seqparallel", "one", "bootstrap", "model",
+                                 "model_flash")})
     return result
 
 
@@ -3395,12 +3461,13 @@ def mesh_scorer(smi: str, device: str) -> dict:
 
 
 def mesh_seqparallel(smi: str, device: str) -> dict:
-    """(c): ``examples/seqparallel_config.yaml`` as written (``attn_impl:
-    ring`` over {data: 2, seq: 4}) on the repeated device: the fit, then
+    """(c): ``examples/seqparallel_config.yaml`` (``attn_impl: ring`` over
+    {data: 2, seq: 4}, depth cut to ``MESH_SEQ_CUTS``) on the repeated
+    device: the fit, then
     1,024 messages; against the one-device detector with ``attn_impl:
     flash`` on the same weights."""
     changes = dict(MESH_SEQ_CPU_CHANGES, device="cpu") if device != "cuda" else {}
-    cfg = example_block("seqparallel_config.yaml", **changes)
+    cfg = example_block("seqparallel_config.yaml", **dict(MESH_SEQ_CUTS, **changes))
     with _head_shapes() as seen:
         det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": cfg}})
         t0 = time.perf_counter()
@@ -3447,7 +3514,7 @@ def mesh_seqparallel(smi: str, device: str) -> dict:
     head = max(1, min(8, len(losses) // 4))
     result = dict(
         card=smi, config="examples/seqparallel_config.yaml", mesh=det._device_label,
-        cuts="none", setup_s=setup_s, fit_s=fit_s, train_steps=len(losses),
+        cuts=dict(MESH_SEQ_CUTS), setup_s=setup_s, fit_s=fit_s, train_steps=len(losses),
         loss_first=float(np.mean(losses[:head])), loss_last=float(np.mean(losses[-head:])),
         detect_s=detect_s, lines_per_s=MESH_SEQ_DETECT / detect_s, n_detect=MESH_SEQ_DETECT,
         threshold=threshold, alerts=len(by_id), anomalies=len(anomalies),
@@ -3484,6 +3551,381 @@ def mesh_seqparallel(smi: str, device: str) -> dict:
     if failures:
         raise AssertionError(f"phase mesh (c) failed: {failures}")
     return result
+
+
+class _flash_shapes:
+    """Inside: the (B, H, S, T, D, dtype, backward) of every call the
+    models make to the flash attention (``ops/attention``'s binding of
+    ``flash.flash_attention``); backward when its q takes a gradient."""
+
+    def __enter__(self):
+        from detectmateservice_tpu_torch.ops import attention as attention_mod
+
+        self.mod, self.saved, self.shapes = attention_mod, attention_mod.flash_attention, set()
+
+        def recording(q, k, v, key_mask=None):
+            b, h, s, d = q.shape
+            self.shapes.add((int(b), int(h), int(s), int(k.shape[2]), int(d), q.dtype,
+                             bool(q.requires_grad and torch.is_grad_enabled())))
+            return self.saved(q, k, v, key_mask)
+
+        attention_mod.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.saved
+        return False
+
+
+def mesh_flash_checks(shapes) -> list:
+    """The three flash kernels against their plain versions at each shape
+    a model shard gave them: q, k and v cut as a shard cuts them from the
+    gathered qkv (``"shard"``), keys masked as tokenized lines are."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for b, h, s, t, d, dtype, backward in sorted(shapes, key=str):
+        results = flash_case_results((b, h, s, t, d, dtype, "rows", backward, "shard"), gen)
+        ok = all(r[0] for r in results.values())
+        row = dict(shape=[b, h, s, t, d], dtype=_dtype_name(dtype), backward=backward, ok=ok,
+                   variants={kind: flash.variant(kind, dtype, d)
+                             for kind in ("forward", "dq", "dkv")},
+                   **{name: {"max_abs_err": r[1], "tol": r[2], "ok": r[0]}
+                      for name, r in results.items()})
+        emit("mesh_flash_check", **row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_shape_timings(head_shapes, flash_shapes) -> list:
+    """Kernel 1 at the largest N a split path gave it, each flash kernel at
+    the largest batch of its kind, against the plain version and the
+    library call on the same inputs (median of ``MESH_MODEL_REPS``)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    if head_shapes:
+        n, c, d, dtype = max(head_shapes, key=lambda t: t[0])
+        h, e = _lse_inputs(n, c, d, dtype, gen, "cuda")
+        bound_ms, bound_by = lse_bound(n, c, d, dtype)
+        ms = time_ms(lambda: scorehead.candidate_lse(h, e), reps=MESH_MODEL_REPS)
+        rows.append(dict(kernel="candidate_lse", shape=[n, c, d], ms=ms,
+                         plain_ms=time_ms(lambda: lse_plain(h, e), reps=MESH_MODEL_REPS,
+                                          warmup=1),
+                         library_ms=time_ms(lambda: lse_library(h, e), reps=MESH_MODEL_REPS,
+                                            warmup=1),
+                         bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                         variant=scorehead.variant(n, c, d, dtype)))
+        del h, e
+    for backward in (False, True):
+        picked = [s for s in flash_shapes if s[6] == backward]
+        if not picked:
+            continue
+        b, hh, s, t, d, dtype, _ = max(picked, key=lambda x: x[0])
+        q, k, v, g, mask = _flash_inputs(b, hh, s, t, d, dtype, "rows", gen, "shard")
+        bias = flash.key_bias(mask)[:, None, None, :].to(dtype).expand(b, hh, s, t)
+        kinds = {"flash_forward": (
+            lambda: flash.flash_forward(q, k, v, mask, want_lse=backward),
+            lambda: flash.flash_forward_reference(q, k, v, mask),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), "forward")}
+        if backward:
+            out, lse = flash.flash_forward(q, k, v, mask, want_lse=True)
+            delta = flash.flash_delta(g, out)
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+
+            def sdpa_backward():
+                torch.autograd.grad(sdpa_out, (qg, kg, vg), g, retain_graph=True)
+
+            kinds = {"flash_dq": (lambda: flash.flash_dq(q, k, v, mask, g, lse, delta),
+                                  lambda: flash.flash_dq_reference(q, k, v, mask, g, lse, delta),
+                                  sdpa_backward, "dq"),
+                     "flash_dkv": (lambda: flash.flash_dkv(q, k, v, mask, g, lse, delta),
+                                   lambda: flash.flash_dkv_reference(q, k, v, mask, g, lse,
+                                                                     delta),
+                                   sdpa_backward, "dkv")}
+        for name, (kernel, plain, library, kind) in kinds.items():
+            ms = time_ms(kernel, reps=MESH_MODEL_REPS)
+            bound_ms, bound_by, _ = flash_bound(kind, b, hh, s, t, d, dtype,
+                                                with_lse=backward)
+            rows.append(dict(kernel=name, shape=[b, hh, s, t, d], ms=ms,
+                             plain_ms=time_ms(plain, reps=MESH_MODEL_REPS, warmup=1),
+                             library_ms=time_ms(library, reps=MESH_MODEL_REPS),
+                             bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                             variant=flash.variant(kind, dtype, d)))
+        del q, k, v, g, mask, bias, kinds
+        torch.cuda.empty_cache()
+    for row in rows:
+        emit("mesh_model_timing", **row)
+    return rows
+
+
+def _reordered_state(state: dict, cfg) -> dict:
+    """The same function in real arithmetic with every row-parallel sum in
+    another order: the heads reversed in qkv's three thirds and in proj's
+    inputs, the MLP's hidden units reversed."""
+    d, h = cfg.dim, cfg.heads
+    heads = torch.arange(d).reshape(h, d // h).flip(0).reshape(-1)
+    thirds = torch.cat([heads + t * d for t in range(3)])
+    out = dict(state)
+    for i in range(cfg.depth):
+        p = f"blocks.{i}."
+        out[p + "qkv.weight"] = state[p + "qkv.weight"][thirds.to(state[p + "qkv.weight"].device)]
+        out[p + "qkv.bias"] = state[p + "qkv.bias"][thirds.to(state[p + "qkv.bias"].device)]
+        out[p + "proj.weight"] = state[p + "proj.weight"][:, heads.to(
+            state[p + "proj.weight"].device)]
+        out[p + "mlp_in.weight"] = state[p + "mlp_in.weight"].flip(0)
+        out[p + "mlp_in.bias"] = state[p + "mlp_in.bias"].flip(0)
+        out[p + "mlp_out.weight"] = state[p + "mlp_out.weight"].flip(1)
+    return out
+
+
+def _swapped_state(state: dict, cfg) -> dict:
+    """A fault: proj's two input halves swapped in every block, so the
+    first half of the heads meets the second half's weights."""
+    out = dict(state)
+    half = cfg.dim // 2
+    for i in range(cfg.depth):
+        w = state[f"blocks.{i}.proj.weight"]
+        out[f"blocks.{i}.proj.weight"] = torch.cat([w[:, half:], w[:, :half]], dim=1)
+    return out
+
+
+def mesh_split_controls(det, tokens: np.ndarray, call: int) -> dict:
+    """Op by op on the mesh detector's weights and norm statistics, each
+    model scoring ``tokens`` in calls of ``call`` rows the way the detector
+    serves them (positional z-scores once calibrated); max |delta| against
+    the one-device model of the same dtype:
+
+    * ``fp32``: the split with an fp32 scorer, which must give the
+      one-device function (``MESH_TOL``);
+    * ``split``: the split at the path's dtype;
+    * ``reordered``: one device against itself with its row-parallel sums
+      in another order (``_reordered_state``), the dtype's noise floor,
+      which a bound on the split must pass;
+    * ``swapped``: the fault ``_swapped_state``, which it must fail.
+
+    Launches made here are outside the path's counts."""
+    from detectmateservice_tpu_torch.parallel import ShardedScorer
+
+    sharded = det._sharded
+    lead = sharded.mesh.lead
+    state = sharded.state_dict()
+    kind = det._serve_kind()
+    norm = (det._norm_mu, det._norm_sigma) if kind == "normscore" else None
+
+    def scores(fn) -> np.ndarray:
+        return np.concatenate([fn(torch.from_numpy(np.ascontiguousarray(
+            tokens[i:i + call])).to(lead)).cpu().numpy() for i in range(0, len(tokens), call)])
+
+    def one_device(scorer, weights: dict) -> np.ndarray:
+        model = scorer.init_model(lead)
+        model.load_state_dict(weights)
+        if norm is None:
+            return scores(lambda part: scorer.score(model, part))
+        mu, sigma = (torch.from_numpy(x).to(lead) for x in norm)
+        return scores(lambda part: scorer.normscore(model, part, mu, sigma))
+
+    def gap(got: np.ndarray, want: np.ndarray) -> float:
+        return float(np.abs(got - want).max())
+
+    fp32 = type(sharded.scorer)(dataclasses.replace(sharded.scorer.config, dtype=torch.float32))
+    split32 = ShardedScorer(fp32, mesh=sharded.mesh, ledger=device_obs.CompileLedger())
+    split32.install_params(state)
+    if norm is not None:
+        split32.set_norm(*norm)
+    out = {"kind": kind, "rows": len(tokens),
+           "fp32": gap(scores(lambda part: split32.eager(kind, part)), one_device(fp32, state))}
+    del split32
+    scorer, cfg = sharded.scorer, sharded.scorer.config
+    one = one_device(scorer, state)
+    out.update(split=gap(scores(lambda part: sharded.eager(kind, part)), one),
+               reordered=gap(one_device(scorer, _reordered_state(state, cfg)), one),
+               swapped=gap(one_device(scorer, _swapped_state(state, cfg)), one))
+    _empty_cache(lead.type)
+    return out
+
+
+def _mesh_model_path(label: str, smi: str, device: str, cfg: dict, source: str,
+                     n_detect: int, call: int, tol: float) -> dict:
+    """(f) or (g): a LogBERT detector on a mesh whose ``model`` axis
+    computes (the rows hold the rules' slices), through its fit and a
+    stream, against the one-device detector on its weights; kernel 1 (and
+    the flash kernels) counted over the path and held against their plain
+    versions at each shape it gave them; the split leaves' bytes per model
+    shard beside 1/m of the whole; the split in fp32 against one device
+    within ``MESH_TOL``, and ``tol``, the bound on the scores' gap at the
+    path's own dtype, passing one device's gap to itself with its sums
+    reordered and failing a fault (``mesh_split_controls``, on one call's
+    rows). Each part's seconds go into ``parts_s``."""
+    parts_s = {}
+    t_part = time.perf_counter()
+    with _head_shapes() as seen, _flash_shapes() as seen_flash:
+        det = TorchScorerDetector(config={"detectors": {"TorchScorerDetector": cfg}})
+        t0 = time.perf_counter()
+        det.setup_io()
+        setup_s = time.perf_counter() - t0
+        sharded = det._sharded
+        dp, m = int(cfg["mesh_shape"]["data"]), int(cfg["mesh_shape"]["model"])
+        if not sharded.split or sharded.model_parallelism != m or len(det._warm.rows) != dp:
+            raise AssertionError(f"{label}: the mesh {det._device_label} does not split over "
+                                 f"model (split {sharded.split}, {len(det._warm.rows)} rows)")
+        steps = []
+        train_step = sharded.train_step
+
+        def recording(*args, **kwargs):
+            loss = train_step(*args, **kwargs)
+            steps.append(loss)
+            return loss
+
+        sharded.train_step = recording
+        fit_msgs, _ = make_messages(cfg["data_use_training"], anomaly_rate=0.0)
+        detect_msgs, anomalies = make_messages(n_detect, anomaly_rate=0.01, seed=1)
+
+        # the main path: launch counts 0 just before, read just after
+        reset_launches()
+        replays0 = replayed(det)
+        t0 = time.perf_counter()
+        assert det.process_batch(fit_msgs) == []
+        det._finish_fit(wait=True)
+        fit_s = time.perf_counter() - t0
+        alerts, detect_s = _stream(det, detect_msgs, call)
+        counts = read_launches()
+        variants = read_variants()
+        graph = replay_delta(det, replays0)
+        sharded.train_step = train_step
+    parts_s["path"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    n_fit = cfg["data_use_training"]
+    n_cal = (max(16, n_fit // 5) if cfg.get("score_norm") == "position" and n_fit >= 64
+             else n_fit)
+    calib_chunks = -(-n_cal // min(32, cfg["max_batch"]))     # the train bucket
+    device_batches = det.path_counts["device"]
+    scored_rows = (calib_chunks + device_batches) * dp
+    expected = {"candidate_lse": scored_rows}
+    flash_path = cfg.get("attn_impl") == "flash"
+    if flash_path:
+        # each shard's attention, in every layer, of every row's call
+        per_call = int(cfg["depth"]) * m
+        expected.update(flash_forward=(scored_rows + len(steps) * dp) * per_call,
+                        flash_dq=len(steps) * dp * per_call,
+                        flash_dkv=len(steps) * dp * per_call)
+    threshold = det._threshold
+    by_id = _alerts_by_id(alerts, threshold)
+    tokens, ok = det._featurize_raw_batch(detect_msgs)
+    mesh_scores = np.concatenate([det.score_tokens(tokens[i:i + call])
+                                  for i in range(0, len(tokens), call)])
+    one_scores, one = _mesh_yardstick(det, cfg, tokens, threshold, call)
+    gap = _decision_gap(mesh_scores, one_scores, threshold)
+    del one
+    parts_s["yardstick"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    controls = mesh_split_controls(det, tokens[:call], call)
+    parts_s["controls"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    held = sharded.shard_bytes()
+    head_rows = mesh_head_checks(seen.shapes, device)
+    on_card = device == "cuda"
+    flash_rows = mesh_flash_checks(seen_flash.shapes) if on_card else []
+    parts_s["kernel_checks"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    timings = mesh_shape_timings(seen.shapes, seen_flash.shapes) if on_card else []
+    parts_s["kernel_timings"] = time.perf_counter() - t_part
+    head = max(1, min(8, len(steps) // 4))
+    result = dict(
+        card=smi, config=source, mesh=det._device_label, setup_s=setup_s,
+        fit_s=fit_s, train_steps=len(steps),
+        loss_first=float(np.mean(steps[:head])) if steps else None,
+        loss_last=float(np.mean(steps[-head:])) if steps else None,
+        detect_s=detect_s, lines_per_s=n_detect / detect_s, n_detect=n_detect,
+        call_size=call, threshold=threshold, alerts=len(by_id), anomalies=len(anomalies),
+        recall=len(anomalies & set(by_id)) / max(1, len(anomalies)),
+        launches=counts["candidate_lse"], launch_counts=counts, expected_launches=expected,
+        calibration_chunks=calib_chunks, device_batches=device_batches,
+        variants=variants, replayed_launches=graph, vs_one_device=gap, tolerance=tol,
+        controls=controls, fp32_tolerance=MESH_TOL, parts_s=parts_s,
+        split_bytes={"whole": held["whole"], "one_mth": held["whole"] / m,
+                     "per_shard": held["per_shard"], "leaves": held["split_leaves"]},
+        head_checks=head_rows, flash_checks=flash_rows,
+        head_shapes=sorted([n, c, d, _dtype_name(t)] for n, c, d, t in seen.shapes),
+        flash_shapes=sorted([b, h, s, t, d, _dtype_name(dt), bw]
+                            for b, h, s, t, d, dt, bw in seen_flash.shapes),
+        flash_max_abs_err=max((r[k]["max_abs_err"] for r in flash_rows
+                               for k in ("out", "dq", "dk", "dv") if k in r), default=0.0),
+        timings=timings,
+        alerts_match=sorted(by_id) == sorted(str(i) for i in np.flatnonzero(
+            ok & (mesh_scores > threshold))))
+    emit(label, **result)
+    failures = []
+    if counts["candidate_lse"] != expected["candidate_lse"] or (
+            not flash_path and (counts["flash_forward"] or counts["flash_dq"]
+                                or counts["flash_dkv"])):
+        failures.append(f"launches {counts}, expected {expected}")
+    if on_card:
+        if flash_path and {k: counts[k] for k in expected} != expected:
+            failures.append(f"launches {counts}, expected {expected}")
+        try:
+            check_head_variants(variants["candidate_lse"], f"wgmma_tma_d{cfg['dim']}_",
+                                counts["candidate_lse"], label)
+            replays_want = {"candidate_lse": counts["candidate_lse"]}
+            if flash_path:
+                replays_want["flash_forward"] = scored_rows * int(cfg["depth"]) * m
+            check_replays(graph, replays_want, label)
+        except AssertionError as exc:
+            failures.append(str(exc))
+        if flash_path and (not flash_rows or any(not r["ok"] for r in flash_rows)
+                           or {r["backward"] for r in flash_rows} != {False, True}):
+            failures.append(f"the flash kernels at the shards' shapes: {flash_rows}")
+        if flash_path and any(not v.startswith("wgmma_tma") for name in
+                              ("flash_forward", "flash_dq", "flash_dkv")
+                              for v in variants[name]):
+            failures.append(f"a bf16 flash launch took another variant: {variants}")
+    if not gap["max_abs_delta"] <= tol:
+        failures.append(f"scores {gap['max_abs_delta']} from one device, over {tol}")
+    if not controls["fp32"] <= MESH_TOL:
+        failures.append(f"the split in fp32 is {controls['fp32']} from one device, over "
+                        f"{MESH_TOL}")
+    if not controls["reordered"] <= tol:
+        failures.append(f"one device with its sums reordered is {controls['reordered']} from "
+                        f"itself, over the bound {tol}")
+    if not controls["swapped"] > tol:
+        failures.append(f"the bound {tol} passes a fault (proj's head halves swapped: "
+                        f"{controls['swapped']})")
+    if gap["flip_distances"] and max(gap["flip_distances"]) >= 1e-2:
+        failures.append(f"decisions apart from one device beyond 1e-2: {gap}")
+    if not head_rows or any(not r["ok"] for r in head_rows):
+        failures.append(f"kernel 1 against its plain version: {head_rows}")
+    if any(h * m != held["whole"] for row in held["per_shard"] for h in row):
+        failures.append(f"a model shard does not hold 1/{m} of the split leaves: {held}")
+    if not np.isfinite(threshold) or not np.isfinite(mesh_scores).all():
+        failures.append(f"threshold {threshold} or scores not finite")
+    if not result["alerts_match"]:
+        failures.append("the stream's alerts are not the mesh's own decisions")
+    if not steps or not result["loss_last"] < result["loss_first"]:
+        failures.append(f"the fit's loss did not fall: {steps[:3]} ... {steps[-3:]}")
+    if failures:
+        raise AssertionError(f"phase mesh ({label}) failed: {failures}")
+    return result
+
+
+def mesh_model(smi: str, device: str) -> dict:
+    """(f): ``examples/mesh_scorer_config.yaml``'s widths on {data: 4,
+    model: 2}: every row's LogBERT over its two model shards, kernel 1 once
+    per row on the row's first device."""
+    changes = dict(MESH_MODEL_CPU_CHANGES, device="cpu") if device != "cuda" else {}
+    cfg = example_block("mesh_scorer_config.yaml", mesh_shape=dict(MESH_MODEL_SHAPE), **changes)
+    source = "examples/mesh_scorer_config.yaml, mesh_shape " + json.dumps(MESH_MODEL_SHAPE)
+    return _mesh_model_path("mesh_model", smi, device, cfg, source, MESH_MODEL_DETECT,
+                            MESH_MODEL_CALL, MESH_MODEL_TOL)
+
+
+def mesh_model_flash(smi: str, device: str) -> dict:
+    """(g): ``examples/seqparallel_config.yaml``'s widths with ``attn_impl:
+    flash`` on {data: 2, model: 2}: the flash forward, dQ and dK/dV kernels
+    at two heads per shard, kernel 1 once per row."""
+    changes = dict(MESH_MODEL_FLASH_CPU_CHANGES, device="cpu") if device != "cuda" else {}
+    cfg = example_block("seqparallel_config.yaml", attn_impl="flash",
+                        mesh_shape=dict(MESH_MODEL_FLASH_SHAPE), **changes)
+    source = ("examples/seqparallel_config.yaml, attn_impl flash, mesh_shape "
+              + json.dumps(MESH_MODEL_FLASH_SHAPE))
+    return _mesh_model_path("mesh_model_flash", smi, device, cfg, source,
+                            MESH_MODEL_FLASH_DETECT, MESH_MODEL_FLASH_CALL, MESH_SEQ_TOL)
 
 
 def mesh_of_one(device: str) -> dict:
@@ -4089,8 +4531,11 @@ def serve_counted(settings_path: str, report_path: str) -> int:
     and recording every shape the detector hands it; the counts go to
     ``report_path`` as JSON once the CLI returns. The pipeline phase starts
     its detector stage so."""
+    import faulthandler
+
     from detectmateservice_tpu_torch import cli
 
+    faulthandler.register(PIPELINE_DUMP_SIGNAL, all_threads=True)
     services = []
 
     class Counted(cli.Service):
@@ -4132,12 +4577,69 @@ class _Tap(threading.Thread):
 
 
 def _stage_lines(ports: dict, cids: dict, timeout: float = 30.0) -> dict:
-    """Each stage's read and written lines, from its ``/metrics``."""
+    """Each stage's read and written lines, from its ``/metrics``; a stage
+    that does not answer raises ``StageSilent`` naming it."""
     out = {}
     for stage, port in ports.items():
-        text = _http("GET", port, "/metrics", timeout)[1]
+        try:
+            text = _http("GET", port, "/metrics", timeout)[1]
+        except OSError as exc:
+            raise StageSilent({stage: f"no answer from /metrics within {timeout} s: "
+                                      f"{exc}"}) from exc
         out[stage] = (metric_value(text, "data_read_lines_total", cids[stage]),
                       metric_value(text, "data_written_lines_total", cids[stage]))
+    return out
+
+
+class StageSilent(AssertionError):
+    """Stages of the demo stack that stopped answering (stage -> what was
+    asked and how it failed)."""
+
+    def __init__(self, silent: dict):
+        super().__init__(f"stages stopped answering: {silent}")
+        self.silent = silent
+
+
+# the frame that tells each stage thread's role in a stack dump
+_THREAD_ROLES = (("_run_loop", "engine"), ("serve_forever", "http"),
+                 ("_collect_burst", "engine"), ("ProfileManager", "profiler"),
+                 ("_fit_worker", "fit"), ("tick", "monitor"))
+
+
+def dump_stage_stacks(procs: dict, tmp: Path) -> dict:
+    """Each running stage's threads' stacks: ``PIPELINE_DUMP_SIGNAL`` to
+    every stage process, whose faulthandler writes them to its stderr file;
+    returns stage -> threads, each with its role (engine, http, ...) where
+    a frame tells it and its innermost frames, and prints them."""
+    marks = {}
+    for stage, proc in procs.items():
+        path = tmp / f"{stage}.err"
+        marks[stage] = path.stat().st_size if path.exists() else 0
+        if proc.poll() is None:
+            proc.send_signal(PIPELINE_DUMP_SIGNAL)
+    time.sleep(PIPELINE_DUMP_WAIT_S)
+    out = {}
+    for stage, proc in procs.items():
+        if proc.poll() is not None:
+            out[stage] = {"exited": proc.returncode}
+            continue
+        with open(tmp / f"{stage}.err", "rb") as fh:
+            fh.seek(marks[stage])
+            text = fh.read().decode(errors="replace")
+        threads = []
+        for block in re.split(r"\n(?=(?:Current thread|Thread) 0x)", "\n" + text):
+            head, _, body = block.strip().partition("\n")
+            if not head.startswith(("Current thread", "Thread")):
+                continue
+            frames = [line.strip() for line in body.splitlines() if line.strip().startswith(
+                "File")]
+            role = next((name for key, name in _THREAD_ROLES
+                         if any(key in f for f in frames)), "other")
+            threads.append({"thread": head.split(" (")[0], "role": role,
+                            "innermost": frames[:6]})
+        out[stage] = {"threads": threads}
+        print(f"pipeline: {stage} stage's threads: {json.dumps(threads)}", file=sys.stderr,
+              flush=True)
     return out
 
 
@@ -4200,8 +4702,7 @@ def phase_pipeline(smi: str, device: str = "cuda") -> dict:
                        f"chip_smoke.serve_counted({str(files[stage])!r}, "
                        f"{str(tmp / 'detector_report.json')!r}))"]
             else:
-                cmd = [sys.executable, "-m", "detectmateservice_tpu_torch.cli",
-                       "--settings", str(files[stage])]
+                cmd = [sys.executable, "-c", PIPELINE_STAGE_CODE, str(files[stage])]
             with open(tmp / f"{stage}.out", "wb") as out, open(tmp / f"{stage}.err", "wb") as err:
                 procs[stage] = subprocess.Popen(
                     cmd, stdout=out, stderr=err, env=env,
@@ -4281,9 +4782,16 @@ def phase_pipeline(smi: str, device: str = "cuda") -> dict:
         try:
             _wait(settled, 240, "the pipeline to drain", interval=0.1)
         except AssertionError as exc:
+            silent = {stage: v for stage, v in (last.get("counts") or {}).items()
+                      if isinstance(v, str)}
+            stacks = dump_stage_stacks(procs, tmp)
             tails = {stage: (tmp / f"{stage}.err").read_text()[-600:] for stage in procs}
-            raise AssertionError(f"{exc}: last {last}; stderr {tails}") from exc
-        counts = _stage_lines(ports, cids)
+            raise AssertionError(f"{exc}: last {last}; silent {silent}; stacks {stacks}; "
+                                 f"stderr {tails}") from exc
+        try:
+            counts = _stage_lines(ports, cids)
+        except StageSilent as exc:
+            raise AssertionError(f"{exc}; stacks {dump_stage_stacks(procs, tmp)}") from exc
         profile_status = _http("GET", ports["detector"], "/admin/profile")[1]
         exits = {}
         for stage in PIPELINE_STAGES:
@@ -4470,37 +4978,46 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    name, _smi = phase_card()
-    main_path_ptxas = phase_build()
-    lse_err = phase_kernel_checks()
-    lse_times = phase_timings()
-    flash_err = phase_flash_checks()
-    flash_times = phase_flash_timings()
-    mlp = phase_detector()
+    phases_s = {}
+
+    def timed(label: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases_s[label] = time.perf_counter() - t0
+        return out
+
+    name, _smi = timed("card", phase_card)
+    main_path_ptxas = timed("build", phase_build)
+    lse_err = timed("kernel_checks", phase_kernel_checks)
+    lse_times = timed("timings", phase_timings)
+    flash_err = timed("flash_checks", phase_flash_checks)
+    flash_times = timed("flash_timings", phase_flash_timings)
+    mlp = timed("detector", phase_detector)
     torch.cuda.empty_cache()
-    frames = phase_frames(_smi)
+    frames = timed("frames", phase_frames, _smi)
     torch.cuda.empty_cache()
-    logbert = phase_logbert_detector()
+    logbert = timed("logbert", phase_logbert_detector)
     torch.cuda.empty_cache()
-    gru, gru_det = phase_gru_detector()
+    gru, gru_det = timed("gru", phase_gru_detector)
     torch.cuda.empty_cache()
-    int8, int8_det = phase_int8_detector(mlp["lines_per_s"])
-    phase_checkpoints({"gru": gru_det, "int8w_mlp": int8_det})
-    int8_lc = int8_lifecycle(int8_det, make_messages(INT8_CONFIG["max_batch"],
-                                                     anomaly_rate=0.01, seed=1)[0])
+    int8, int8_det = timed("int8w", phase_int8_detector, mlp["lines_per_s"])
+    timed("checkpoints", phase_checkpoints, {"gru": gru_det, "int8w_mlp": int8_det})
+    int8_lc = timed("int8w_lifecycle", int8_lifecycle, int8_det, make_messages(
+        INT8_CONFIG["max_batch"], anomaly_rate=0.01, seed=1)[0])
     del gru_det, int8_det
     torch.cuda.empty_cache()
-    service = phase_service(_smi, frames["lines_per_s"])
+    service = timed("service", phase_service, _smi, frames["lines_per_s"])
     torch.cuda.empty_cache()
     # the phases that hold the release-wait bound host the detector's
     # service in an interpreter of its own, as a deployment does
-    coalesce = run_isolated("phase_coalesce", _smi)
-    lifecycle = run_isolated("phase_lifecycle", _smi)
-    trace = run_isolated("phase_trace", _smi, lse_times[(1024, 128)]["ms"])
-    mesh = phase_mesh(_smi)
+    coalesce = timed("coalesce", run_isolated, "phase_coalesce", _smi)
+    lifecycle = timed("lifecycle", run_isolated, "phase_lifecycle", _smi)
+    trace = timed("trace", run_isolated, "phase_trace", _smi, lse_times[(1024, 128)]["ms"])
+    mesh = timed("mesh", phase_mesh, _smi)
+    mesh_model, mesh_flash = mesh["model"], mesh["model_flash"]
     torch.cuda.empty_cache()
-    pipeline = phase_pipeline(_smi)
-    phase_frames_profile(_smi)
+    pipeline = timed("pipeline", phase_pipeline, _smi)
+    timed("frames_profile", phase_frames_profile, _smi)
     logbert_lc = logbert["lifecycle"]
     mlp_row = lse_times[(CALL_SIZE, 128)]
     kernels = [{
@@ -4513,7 +5030,8 @@ def main() -> int:
                      + gru["launch_counts"]["candidate_lse"] + int8["launches"]
                      + service["launches"] + coalesce["launches"] + lifecycle["launches"]
                      + int8_lc["launches"] + logbert_lc["launch_counts"]["candidate_lse"]
-                     + trace["launches"] + mesh["launches"] + pipeline["launches"]),
+                     + trace["launches"] + mesh["launches"] + pipeline["launches"]
+                     + mesh_model["launches"] + mesh_flash["launches"]),
         "launches_by_path": {"mlp": mlp["launches"], "mlp_frames": frames["launches"],
                              "logbert": logbert["launch_counts"]["candidate_lse"],
                              "gru": gru["launch_counts"]["candidate_lse"],
@@ -4523,7 +5041,9 @@ def main() -> int:
                              "int8w_lifecycle": int8_lc["launches"],
                              "logbert_lifecycle": logbert_lc["launch_counts"]["candidate_lse"],
                              "trace": trace["launches"], "mesh": mesh["launches"],
-                             "pipeline": pipeline["launches"]},
+                             "pipeline": pipeline["launches"],
+                             "mesh_model": mesh_model["launches"],
+                             "mesh_model_flash": mesh_flash["launches"]},
         # every launch of the serving paths ran as part of a CUDA-graph
         # replay; on the lifecycle paths the candidate's shadow chunks run
         # op by op
@@ -4540,7 +5060,10 @@ def main() -> int:
                                  logbert_lc["replayed_launches"]["candidate_lse"],
                              "trace": trace["replayed_launches"]["candidate_lse"],
                              "mesh": mesh["replayed_launches"]["candidate_lse"],
-                             "pipeline": pipeline["replayed_launches"]["candidate_lse"]},
+                             "pipeline": pipeline["replayed_launches"]["candidate_lse"],
+                             "mesh_model": mesh_model["replayed_launches"]["candidate_lse"],
+                             "mesh_model_flash":
+                                 mesh_flash["replayed_launches"]["candidate_lse"]},
         "max_abs_err": max(lse_err, mesh["head_max_abs_err"], pipeline["head_max_abs_err"]),
         "ms": mlp_row["ms"],
         "plain_ms": mlp_row["plain_ms"],
@@ -4560,7 +5083,9 @@ def main() -> int:
                                 "int8w_lifecycle": int8_lc["variants"],
                                 "logbert_lifecycle": logbert_lc["variants"]["candidate_lse"],
                                 "trace": trace["variants"], "mesh": mesh["variants"],
-                                "pipeline": pipeline["variants"]},
+                                "pipeline": pipeline["variants"],
+                                "mesh_model": mesh_model["variants"]["candidate_lse"],
+                                "mesh_model_flash": mesh_flash["variants"]["candidate_lse"]},
         "ptxas": {name: main_path_ptxas[MAIN_PATH_WGMMA[name]]
                   for name in ("lse_d128", "lse_d256", "lse_combine")},
         "logbert_calibration_shape": dict(shape=[65536, 32768, 256],
@@ -4570,6 +5095,11 @@ def main() -> int:
         "mlp_calibration_shape": dict(shape=[32, 32768, 128], **lse_times[(32, 128)]),
         "gru_detect_shape": dict(shape=[131072, 32768, 128], **lse_times[(131072, 128)]),
         "gru_calibration_shape": dict(shape=[1024, 32768, 128], **lse_times[(1024, 128)]),
+        # the shapes the model axis's rows gave it, each held against its
+        # plain version (max_abs_err above) and the largest timed
+        "mesh_model_shapes": mesh_model["head_shapes"] + mesh_flash["head_shapes"],
+        "mesh_model_timings": [r for r in mesh_model["timings"] + mesh_flash["timings"]
+                               if r["kernel"] == "candidate_lse"],
     }]
     replaces = {"forward": "detectmateservice_tpu/ops/flash.py:64",
                 "dq": "detectmateservice_tpu/ops/flash.py:221",
@@ -4583,8 +5113,12 @@ def main() -> int:
             "source": "detectmateservice_tpu_torch/ops/csrc/flash.cu",
             "replaces": replaces[kind],
             "launches": (logbert["launch_counts"][fn_name]
-                         + logbert_lc["launch_counts"][fn_name]),
-            "max_abs_err": flash_err[fn_name],
+                         + logbert_lc["launch_counts"][fn_name]
+                         + mesh_flash["launch_counts"][fn_name]),
+            "max_abs_err": max(flash_err[fn_name], max(
+                (r[name]["max_abs_err"] for r in mesh_flash["flash_checks"]
+                 for name, kernel in _FLASH_RESULT_KERNEL.items()
+                 if kernel == fn_name and name in r), default=0.0)),
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "shape", "variant",
                                          "bound_share")},
@@ -4592,15 +5126,24 @@ def main() -> int:
             "launches_by_path": {"logbert": logbert["launch_counts"][fn_name],
                                  "lifecycle": lifecycle["launch_counts"][fn_name],
                                  "int8w_lifecycle": int8_lc["launch_counts"][fn_name],
-                                 "logbert_lifecycle": logbert_lc["launch_counts"][fn_name]},
+                                 "logbert_lifecycle": logbert_lc["launch_counts"][fn_name],
+                                 "mesh_model": mesh_model["launch_counts"][fn_name],
+                                 "mesh_model_flash": mesh_flash["launch_counts"][fn_name]},
             "replayed_by_path": {"logbert": logbert["replayed_launches"][fn_name],
                                  "lifecycle": lifecycle["replayed_launches"][fn_name],
                                  "int8w_lifecycle": int8_lc["replayed_launches"][fn_name],
                                  "logbert_lifecycle":
-                                     logbert_lc["replayed_launches"][fn_name]},
+                                     logbert_lc["replayed_launches"][fn_name],
+                                 "mesh_model_flash": mesh_flash["replayed_launches"][fn_name]},
             "launches_by_variant": {"logbert": logbert["variants"][fn_name],
                                     "lifecycle": {}, "int8w_lifecycle": {},
-                                    "logbert_lifecycle": logbert_lc["variants"][fn_name]},
+                                    "logbert_lifecycle": logbert_lc["variants"][fn_name],
+                                    "mesh_model_flash": mesh_flash["variants"][fn_name]},
+            # the shapes the model shards gave it (two heads each), each held
+            # against its plain version, and the largest timed
+            "mesh_model_shapes": [s for s in mesh_flash["flash_shapes"]
+                                  if kind == "forward" or s[6]],
+            "mesh_model_timings": [r for r in mesh_flash["timings"] if r["kernel"] == fn_name],
         }
         if kind in MAIN_PATH_WGMMA:
             entry["ptxas"] = main_path_ptxas[MAIN_PATH_WGMMA[kind]]
@@ -4614,7 +5157,7 @@ def main() -> int:
                if row is None or row.get("spill_stores") or row.get("spill_loads")}
     if spilled:
         raise AssertionError(f"ptxas reports spills (or no entry) for {spilled}")
-    emit("total", seconds=time.perf_counter() - t_start)
+    emit("total", seconds=time.perf_counter() - t_start, phases_s=phases_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

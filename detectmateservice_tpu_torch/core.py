@@ -55,6 +55,7 @@ import logging
 import os
 import sys
 import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Type
 
@@ -364,6 +365,16 @@ class Service:
     def run(self) -> None:
         """Admin server up, engine (auto)started, park until shutdown."""
         self._ran = True
+        device = getattr(self.library_component, "device", None)
+        if getattr(device, "type", None) == "cuda":
+            # Kineto initialized on the thread that registered it, before
+            # any /admin/profile capture starts on a thread of its own
+            from .utils.profiling import PROFILER
+
+            t0 = time.monotonic()
+            if PROFILER.init_on_this_thread(device):
+                self.logger.info("profiler initialized on the main thread in %.3f s",
+                                 time.monotonic() - t0)
         self.web_server.start()
         # the port that bound: with http_port 0 the operator finds it here
         self.logger.info("HTTP Admin active at %s:%s", self.settings.http_host,

@@ -122,8 +122,11 @@ These run on the caller's thread and enqueue under the warm set's lock
 **Mesh mode** (``mesh_shape``, the JAX detector's multi-chip mode): one
 process drives every device of a mesh (``parallel/``). The scorer is a
 ``parallel.ShardedScorer``: batches split over the ``data`` axis, a
-logbert's weights over ``model`` per ``LOGBERT_RULES``, and ``attn_impl:
-ring`` runs its attention as a ring over the ``seq`` axis. The warm set is
+logbert's weights over ``model`` per ``LOGBERT_RULES`` (each data row runs
+its model shards: column- and row-parallel matmuls, each shard's heads
+through the path's attention kernel, kernel 1 once per row on the joined
+E), and ``attn_impl: ring`` runs its attention as a ring over the ``seq``
+axis. The warm set is
 one CUDA-graph warm set per data row behind ``MeshWarmSet``; the fit trains
 every row and sums the gradients over them. As in the JAX detector, mesh
 mode has no host copy, labels its device ``mesh(data=8)`` and its capture
@@ -904,14 +907,20 @@ class TorchScorerDetector(CoreDetector):
 
     def _train_step(self, batch: np.ndarray) -> float:
         """One optimizer step with its own generator, seeded from the
-        detector's seed stream (the masked-LM mask is drawn from it)."""
+        detector's seed stream (the masked-LM mask is drawn from it). The
+        step holds the warm set's lock, as a fine-tune's steps do: a
+        profiler start or stop (which holds it, ``utils/profiling.py``)
+        waits for the step in flight, and no step runs during one (a stop
+        during a fit's backward has frozen the process, the stop and the
+        backward each waiting inside torch)."""
         seed = int(torch.randint(0, 2**62, (1,), generator=self._step_seeds))
         generator = torch.Generator(device=self._device).manual_seed(seed)
-        if self._sharded is not None:
-            return self._sharded.train_step(batch, generator=generator)
-        loss = self._scorer.train_step(self._model, self._optimizer, self._put(batch),
-                                       generator=generator)
-        return float(loss)
+        with self._warm.lock:
+            if self._sharded is not None:
+                return self._sharded.train_step(batch, generator=generator)
+            loss = self._scorer.train_step(self._model, self._optimizer, self._put(batch),
+                                           generator=generator)
+            return float(loss)
 
     # -- featurization (host side) --------------------------------------
     def featurize(self, input_: ParserSchema) -> np.ndarray:

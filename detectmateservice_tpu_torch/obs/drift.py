@@ -99,6 +99,21 @@ def psi(base_props: np.ndarray, live_values: np.ndarray,
     return float(np.sum((live_props - base) * np.log(live_props / base)))
 
 
+def warm_statistics() -> None:
+    """Run each numpy path a tick takes (the baseline fit with its
+    resampling, KS, PSI, the manifest document) once on a few synthetic
+    values, and discard the results: the modules numpy loads at a first
+    call load here, when the monitor starts, not inside a tick while
+    traffic flows (on a gVisor host such a load held the whole process
+    for 100-170 ms, ``PERF.md`` §6)."""
+    values = np.arange(64, dtype=np.float64)
+    base = DriftBaseline.fit(None, np.stack([values % 7, values], axis=1), values, keep=16,
+                             pinned_unix=0.0)
+    ks_statistic(base.scores, values[::-1])
+    psi(base.score_props, values, base.score_edges)
+    base.to_dict()
+
+
 # -- baseline --------------------------------------------------------------
 class DriftBaseline:
     """Frozen reference distribution: a retained (quantile-resampled)
@@ -293,6 +308,7 @@ class DriftMonitor:
             return
         if self.monitor is not None:
             self.monitor.add_check(_DriftCheck(self))
+        warm_statistics()
         self._halt.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="DriftMonitor")

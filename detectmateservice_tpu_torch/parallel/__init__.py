@@ -15,7 +15,9 @@ _EXPORTS = {
     "LOGBERT_RULES": "mesh",
     "REPLICATED_RULES": "mesh",
     "batch_sharding": "mesh",
+    "join_leaf": "mesh",
     "make_mesh": "mesh",
+    "split_leaf": "mesh",
     "tree_shardings": "mesh",
     "initialize_from_settings": "distributed",
     "process_info": "distributed",
@@ -34,7 +36,9 @@ if TYPE_CHECKING:  # static analyzers see the real symbols
         LOGBERT_RULES,
         REPLICATED_RULES,
         batch_sharding,
+        join_leaf,
         make_mesh,
+        split_leaf,
         tree_shardings,
     )
     from .ring import ring_attention  # noqa: F401

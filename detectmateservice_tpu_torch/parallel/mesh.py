@@ -25,7 +25,9 @@ rank ``make_mesh`` raises.
 The rules match the port's ``state_dict`` names (``models/convert.py`` maps
 the flax paths onto them). A ``Linear`` weight is stored ``[out, in]`` where
 the flax kernel is ``[in, out]``, so its partition spec is the transpose of
-the JAX rule's.
+the JAX rule's. ``split_leaf`` cuts a leaf into the slices its spec gives
+the shards of an axis (shard j's slice is what the JAX array's shard at
+that mesh position holds), and ``join_leaf`` puts them back together.
 """
 from __future__ import annotations
 
@@ -202,6 +204,40 @@ def tree_shardings(mesh: Mesh, tree: Mapping[str, Any],
         return out
 
     return _walk("", tree)
+
+
+def split_dim(spec: P, axis: str = AXIS_MODEL) -> Optional[int]:
+    """The tensor dimension ``spec`` splits over ``axis``, or None."""
+    for dim, name in enumerate(spec):
+        if name == axis:
+            return dim
+    return None
+
+
+def split_leaf(leaf: torch.Tensor, spec: P, parts: int,
+               axis: str = AXIS_MODEL) -> List[torch.Tensor]:
+    """The ``parts`` contiguous slices of ``leaf`` along the dimension
+    ``spec`` splits over ``axis`` (slice j for shard j of the axis), each
+    its own contiguous tensor; ``[leaf]`` when the spec leaves the leaf
+    whole on that axis. ``tree_shardings`` only names an axis that divides
+    the dimension."""
+    dim = split_dim(spec, axis)
+    if dim is None:
+        return [leaf]
+    if leaf.shape[dim] % parts:
+        raise ValueError(f"dimension {dim} of a {tuple(leaf.shape)} leaf does not divide "
+                         f"into {parts} slices")
+    return [piece.contiguous() for piece in torch.chunk(leaf, parts, dim=dim)]
+
+
+def join_leaf(slices: Sequence[torch.Tensor], spec: P,
+              axis: str = AXIS_MODEL) -> torch.Tensor:
+    """The whole leaf from ``split_leaf``'s slices, on the first slice's
+    device (a replicated leaf's one slice as it is)."""
+    dim = split_dim(spec, axis)
+    if dim is None or len(slices) == 1:
+        return slices[0]
+    return torch.cat([s.to(slices[0].device) for s in slices], dim=dim)
 
 
 def batch_sharding(mesh: Mesh, axis: str = AXIS_DATA) -> NamedSharding:

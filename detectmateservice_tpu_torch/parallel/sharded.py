@@ -5,38 +5,49 @@ config #5: one process drives every device instead of one process per
 device). The JAX class hands its shardings to ``jit`` and lets GSPMD insert
 the collectives; here the single controller does each step itself:
 
-* **Placement.** Each weight is one whole torch tensor per data row, on
-  the row's first device. ``shardings`` (``tree_shardings`` of the rules,
-  ``mesh.LOGBERT_RULES`` for LogBERT) is the layout the JAX mesh gives each
-  leaf, kept for the comparison with JAX; it is not applied: the ``model``
-  axis computes no Megatron split yet, so its devices past a row's first
-  hold and run nothing (``ROADMAP.md``). The ``seq`` axis holds no weights
-  either (it runs the ring's blocks).
+* **Placement.** ``shardings`` is ``tree_shardings`` of the rules
+  (``mesh.LOGBERT_RULES`` for LogBERT), the layout the JAX mesh gives each
+  leaf. With a ``model`` axis of m > 1 and a scorer that runs over model
+  shards (LogBERT, its heads and width divisible by m), it is applied: in
+  each data row a leaf the rules split is m slices (``mesh.split_leaf``),
+  slice j on the row's device at ``model`` j, and a replicated leaf is one
+  whole tensor on the row's first device. Otherwise every leaf is whole on
+  the row's first device. The ``seq`` axis holds no weights (it runs the
+  ring's blocks).
 * **Forward.** The batch pads to a multiple of the data rows and splits
-  over them. A row runs the scorer on its first device through
-  ``torch.func.functional_call`` on a skeleton of the module with the
-  row's weights; with a ``seq`` axis its attention runs as a ring over the
-  row's ``seq`` devices (``ops/attention.ring_context``). The rows' results
-  are gathered onto the mesh's first device.
+  over them. A row runs the scorer on its weights: over its model shards
+  through ``scorer.model_over_shards`` (``models/logbert.py``
+  ``LogBERTOverShards``: column- and row-parallel matmuls, attention of
+  each shard's heads through the path's kernel, the head's E joined and
+  kernel 1 run once on the row's first device), or whole through
+  ``torch.func.functional_call`` on a skeleton of the module; with a
+  ``seq`` axis its attention runs as a ring over the row's ``seq`` devices
+  (``ops/attention.ring_context``). The rows' results are gathered onto
+  the mesh's first device. Weight-only int8 serves whole dequantized
+  weights on each row's first device, split or not.
 * **Training.** One step draws its mask over the whole padded batch and
   counts the batch's loss denominator (``loss_count``); each row then runs
   forward and backward on its ``loss_sum`` over that one denominator, so a
   row weighs what it weighs in the JAX step's mean over the global batch
   (padding rows repeat real rows, as in JAX) and only one row's
-  activations are alive at a time. The first row's weights take the
-  gradient sum over every row (the reduction over ``data``), one AdamW
-  step updates them, and the other rows copy the result in place; the
-  optimizer's state is a one-device optimizer's, so a checkpoint moves
-  between a mesh and one device as it is.
+  activations are alive at a time. The first row's slices take the
+  gradient sum over every row, slice by slice (the reduction over
+  ``data``), one AdamW step updates them, and the other rows copy the
+  result in place. AdamW is elementwise, so a step on the slices is the
+  step on the whole leaf; the optimizer's ``state_dict`` joins the slices'
+  moments into a one-device optimizer's layout (and ``load_state_dict``
+  splits them), and ``state_dict`` joins the weights, so a checkpoint
+  moves between a mesh and one device as it is.
 * **The capture map** (JAX's AOT executables): one CUDA-graph warm set per
   data row (``graphs.WarmSet`` on the row's first device, one lock for
   all), behind ``MeshWarmSet``, which has the warm set's surface for the
-  detector. Every graph reads the weights by address; installs and steps
-  write them in place.
+  detector; a row's graph holds the work of all its model shards. Every
+  graph reads the weights by address; installs and steps write them in
+  place.
 
-A row whose ``seq`` shards sit on other GPUs than its first one copies
-between GPUs inside its graph; that, and a mesh across processes, are not
-proven yet (``ROADMAP.md``).
+A row whose ``seq`` or ``model`` shards sit on other GPUs than its first
+one copies between GPUs inside its graph; that, and a mesh across
+processes, are not proven yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -55,8 +66,8 @@ from ..models import quant
 from ..models.base import ADAMW_BETAS, ADAMW_EPS, ADAMW_WEIGHT_DECAY, widen_tokens
 from ..models.tokenizer import narrow_tokens
 from ..ops.attention import ring_context
-from .mesh import (AXIS_DATA, AXIS_SEQ, LOGBERT_RULES, REPLICATED_RULES, Mesh, make_mesh,
-                   tree_shardings)
+from .mesh import (AXIS_DATA, AXIS_MODEL, AXIS_SEQ, LOGBERT_RULES, REPLICATED_RULES, P, Mesh,
+                   join_leaf, make_mesh, split_dim, split_leaf, tree_shardings)
 
 
 class _RowModule(torch.nn.Module):
@@ -181,6 +192,61 @@ class MeshWarmSet:
                           if not all(row.has(k[0], rb) for row in self.rows))
 
 
+class SlicedAdamW:
+    """AdamW (``optax.adamw``'s defaults, as ``ScorerBase.make_optimizer``)
+    over the first data row's slices, whose ``state_dict`` is a one-device
+    optimizer's over the whole leaves in ``state_dict`` order: each leaf's
+    moments are its slices' joined (``load_state_dict`` splits them)."""
+
+    def __init__(self, slices: Dict[str, List[torch.Tensor]], specs: Dict[str, P],
+                 lr: float) -> None:
+        self._slices = slices
+        self._specs = specs
+        self.inner = torch.optim.AdamW([t for parts in slices.values() for t in parts], lr=lr,
+                                       betas=ADAMW_BETAS, eps=ADAMW_EPS,
+                                       weight_decay=ADAMW_WEIGHT_DECAY)
+
+    def step(self) -> None:
+        self.inner.step()
+
+    def _positions(self) -> List[Tuple[str, List[int]]]:
+        """Each key with the inner optimizer's indices of its slices."""
+        out, pos = [], 0
+        for key, parts in self._slices.items():
+            out.append((key, list(range(pos, pos + len(parts)))))
+            pos += len(parts)
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        inner = self.inner.state_dict()
+        state = {}
+        with torch.no_grad():
+            for i, (key, idx) in enumerate(self._positions()):
+                entries = [inner["state"].get(j) for j in idx]
+                if any(e is None for e in entries):
+                    continue
+                state[i] = {name: (join_leaf([e[name] for e in entries], self._specs[key])
+                                   if torch.is_tensor(value) and value.dim() > 0 else value)
+                            for name, value in entries[0].items()}
+        groups = [dict(g, params=list(range(len(self._slices)))) for g in inner["param_groups"]]
+        return {"state": state, "param_groups": groups}
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        state, total = {}, 0
+        for i, (key, idx) in enumerate(self._positions()):
+            total += len(idx)
+            entry = state_dict["state"].get(i)
+            if entry is None:
+                continue
+            pieces = {name: (split_leaf(value, self._specs[key], len(idx))
+                             if torch.is_tensor(value) and value.dim() > 0 else [value] * len(idx))
+                      for name, value in entry.items()}
+            for n, j in enumerate(idx):
+                state[j] = {name: parts[n] for name, parts in pieces.items()}
+        groups = [dict(g, params=list(range(total))) for g in state_dict["param_groups"]]
+        self.inner.load_state_dict({"state": state, "param_groups": groups})
+
+
 class ShardedScorer:
     """A scorer (``MLPScorer`` / ``GRUScorer`` / ``LogBERTScorer``) placed on
     a mesh. ``score(tokens)`` and ``train_step(tokens)`` own the placed
@@ -216,9 +282,15 @@ class ShardedScorer:
             model = scorer.init_model(lead, generator)
         state = model.state_dict()
         self.shardings = tree_shardings(self.mesh, state, rules)
-        # rows[d][key]: data row d's whole copy of each weight
-        self._rows = [{k: v.detach().to(dev, copy=True).contiguous().requires_grad_(True)
-                       for k, v in state.items()} for dev in self._devices]
+        self.model_parallelism = int(self.mesh.shape.get(AXIS_MODEL, 1))
+        self._split = self._splits(scorer, state)
+        # the spec each leaf is placed by: the rules' on a split mesh
+        self._specs = {k: (self.shardings[k].spec if self._split else P()) for k in state}
+        # rows[d][key]: data row d's slices of each weight (one for a whole
+        # leaf), slice j on the row's device at model j
+        self._rows = [{k: [piece.detach().to(dev, copy=True).contiguous().requires_grad_(True)
+                           for piece, dev in zip(self._slice(k, v), self._shard_devices(d))]
+                       for k, v in state.items()} for d in range(dp)]
         del model, state
         self.linear_keys = quant.linear_weight_keys(scorer.meta_model())
         self._rowmods = [_RowModule(scorer) for _ in range(dp)]
@@ -239,19 +311,52 @@ class ShardedScorer:
         """Data row d's first device: where its forward runs."""
         return self._devices[d]
 
-    def _make_optimizer(self) -> torch.optim.Optimizer:
-        """AdamW with optax.adamw's defaults (``ScorerBase.make_optimizer``)
-        over the first row's weights in ``state_dict`` order: its state is
-        a one-device optimizer's."""
-        return torch.optim.AdamW(list(self._rows[0].values()),
-                                 lr=self.scorer.config.learning_rate,
-                                 betas=ADAMW_BETAS, eps=ADAMW_EPS,
-                                 weight_decay=ADAMW_WEIGHT_DECAY)
+    def _splits(self, scorer, state: Dict[str, torch.Tensor]) -> bool:
+        """Whether the rows hold the ``model`` axis's slices: an axis of
+        more than one shard, a scorer that runs over model shards, heads
+        and width that divide, and a leaf the rules split."""
+        m = self.model_parallelism
+        cfg = getattr(scorer, "config", None)
+        return (m > 1 and callable(getattr(scorer, "model_over_shards", None))
+                and getattr(cfg, "heads", 0) % m == 0 and getattr(cfg, "dim", 0) % m == 0
+                and any(split_dim(self.shardings[k].spec) is not None for k in state))
+
+    @property
+    def split(self) -> bool:
+        """Whether the ``model`` axis computes (the rows hold slices)."""
+        return self._split
+
+    def _shard_devices(self, d: int) -> List[torch.device]:
+        """Data row d's devices along ``model`` (its first alone when the
+        rows hold whole weights)."""
+        if not self._split:
+            return [self._devices[d]]
+        return [self.mesh.device_at(**{AXIS_DATA: d, AXIS_MODEL: j})
+                for j in range(self.model_parallelism)]
+
+    def _slice(self, key: str, whole: torch.Tensor) -> List[torch.Tensor]:
+        return split_leaf(whole, self._specs[key], self.model_parallelism)
+
+    def _make_optimizer(self) -> SlicedAdamW:
+        """AdamW over the first row's slices; its state is a one-device
+        optimizer's."""
+        return SlicedAdamW(self._rows[0], self._specs, self.scorer.config.learning_rate)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        """The weights: the first row's stored tensors, on the mesh's first
-        device."""
-        return dict(self._rows[0])
+        """The weights, each leaf whole: the first row's slices joined on
+        the mesh's first device (a whole leaf is the stored tensor)."""
+        with torch.no_grad():
+            return {k: join_leaf(parts, self._specs[k]) for k, parts in self._rows[0].items()}
+
+    def shard_bytes(self) -> Dict[str, Any]:
+        """The bytes of the leaves the rules split: the whole leaves', and
+        what each (data row, model shard) holds of them."""
+        split = [k for k in self._rows[0] if split_dim(self._specs[k]) is not None]
+        whole = sum(t.nbytes for k in split for t in self._rows[0][k])
+        held = [[sum(self._rows[d][k][j].nbytes for k in split)
+                 for j in range(len(self._shard_devices(d)))]
+                for d in range(self.data_parallelism)]
+        return {"split_leaves": len(split), "whole": int(whole), "per_shard": held}
 
     def install_params(self, params: Dict[str, torch.Tensor],
                        opt_state: Optional[Dict[str, Any]] = None) -> None:
@@ -261,8 +366,9 @@ class ShardedScorer:
         moments restart from zero without one."""
         with self._lock, torch.no_grad():
             for row in self._rows:
-                for key, t in row.items():
-                    t.copy_(params[key])
+                for key, parts in row.items():
+                    for t, piece in zip(parts, self._slice(key, params[key])):
+                        t.copy_(piece)
             if opt_state is not None:
                 self.optimizer.load_state_dict(opt_state)
             else:
@@ -307,15 +413,19 @@ class ShardedScorer:
 
     def _leaves(self, d: int, quantized: bool) -> Dict[str, torch.Tensor]:
         leaves = (quant.dequantize(self._qrows[d], self.scorer.config.dtype) if quantized
-                  else self._rows[d])
+                  else {k: parts[0] for k, parts in self._rows[d].items()})
         return {f"model.{k}": v for k, v in leaves.items()}
 
     def _row_call(self, d: int, op: str, *args, quantized: bool = False):
-        """``scorer.<op>`` on data row d's weights, on its first device, with
-        its ring over the row's seq devices."""
+        """``scorer.<op>`` on data row d's weights: over its model shards
+        when the rows hold slices, else whole on its first device; with its
+        ring over the row's seq devices."""
         ctx = (ring_context(self._row_meshes[d], batch_axis=None, axis_name=self._seq_axis)
                if self._seq_axis is not None else contextlib.nullcontext())
         with self._lock, ctx:
+            if self._split and not quantized:
+                return getattr(self.scorer, op)(self.scorer.model_over_shards(self._rows[d]),
+                                                *args)
             return torch.func.functional_call(self._rowmods[d], self._leaves(d, quantized),
                                               (op, *args))
 
@@ -446,8 +556,9 @@ class ShardedScorer:
                                  for r, m in zip(rows, masks)]).sum()
             count = torch.clamp(count, min=1.0)
             for row in self._rows:
-                for t in row.values():
-                    t.grad = None
+                for parts in row.values():
+                    for t in parts:
+                        t.grad = None
             total = None
             for d, (r, m) in enumerate(zip(rows, masks)):
                 dev = self.row_device(d)
@@ -463,21 +574,24 @@ class ShardedScorer:
         return float(loss.detach())
 
     def _reduce_grads(self) -> None:
-        """The first row's weights take the sum of every row's gradient."""
-        for key, t in self._rows[0].items():
-            for row in self._rows[1:]:
-                grad = row[key].grad
-                if grad is not None:
-                    grad = grad.to(t.device)
-                    t.grad = grad if t.grad is None else t.grad + grad
+        """Each of the first row's slices takes the sum of every row's
+        gradient of that slice."""
+        for key, parts in self._rows[0].items():
+            for j, t in enumerate(parts):
+                for row in self._rows[1:]:
+                    grad = row[key][j].grad
+                    if grad is not None:
+                        grad = grad.to(t.device)
+                        t.grad = grad if t.grad is None else t.grad + grad
 
     @torch.no_grad()
     def _broadcast_rows(self) -> None:
-        """Every other row copies the first row's stepped weights in place."""
+        """Every other row copies the first row's stepped slices in place."""
         for row in self._rows[1:]:
-            for key, dst in row.items():
-                dst.copy_(self._rows[0][key])
-                dst.grad = None
+            for key, parts in row.items():
+                for dst, src in zip(parts, self._rows[0][key]):
+                    dst.copy_(src)
+                    dst.grad = None
 
     def __repr__(self) -> str:
         return f"ShardedScorer({self.scorer.name}, {self.mesh!r})"

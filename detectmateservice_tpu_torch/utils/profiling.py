@@ -25,6 +25,14 @@ and CUDA (and a torch without CUDA activity support raises, never a silent
 host-only trace), the CPU or no device (a component with no device work)
 the host's CPU only.
 
+PyTorch registers its client with Kineto on the thread that imports torch
+(the main thread), and Kineto runs that client's init only on the
+registering thread: a first start on the ``ProfileCapture`` thread logs
+"External init callback must run in same thread as registerClient" and
+skips it. ``init_on_this_thread`` starts and stops the profiler once on the
+main thread, so that the later captures find Kineto initialized; a Service
+whose component computes on CUDA calls it before its engine starts.
+
 Starting or stopping the profiler synchronizes the device, which fails,
 and ruins the capture, while another thread captures a CUDA graph. So both
 transitions hold the lock of every registered warm set
@@ -115,6 +123,25 @@ class ProfileManager:
             for owner in sorted(list(self._owners), key=id):
                 stack.enter_context(owner.lock)
             yield
+
+    def init_on_this_thread(self, device: Optional[torch.device] = None) -> bool:
+        """Start and stop the profiler (``device``'s activities) once on the
+        calling thread when it is the main thread, the one whose import of
+        torch registered PyTorch's client with Kineto; returns whether it
+        ran (not on another thread, nor while a capture runs)."""
+        if threading.current_thread() is not threading.main_thread():
+            return False
+        from torch.profiler import profile
+
+        activities = _activities(device)
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return False
+            prof = profile(activities=activities)
+            with self._captures_quiesced():
+                prof.start()
+                prof.stop()
+        return True
 
     # -- capture ---------------------------------------------------------
     def start(self, base_dir: str, seconds: float, max_captures: int = 4,

@@ -35,7 +35,10 @@ each wake waited for the interpreter lock; a wait of 2 ms or more, or a
 wake 3 ms late or more, notes where every thread was (which thread held
 the interpreter meanwhile). Each line also carries the host's CPU count,
 the process's CPU affinity, the load average and the caching host
-allocator's counts before and after. Imports nothing of JAX.
+allocator's counts before and after, the CPU seconds of this process and
+of its waited children (the sender, the relay and the sink) over the run
+beside its wall seconds, and the drift and capacity ticks' count and wall
+milliseconds. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -356,6 +359,49 @@ class _Probe:
                 "max_gil_ms": pick(gil, 1.0), "slowest_waits": out}
 
 
+class _TickLog:
+    """The drift and capacity monitors' ticks: how many, and their wall
+    milliseconds (p50, max), whichever thread runs them."""
+
+    def __init__(self):
+        import time
+
+        from detectmateservice_tpu_torch.obs import capacity, drift
+
+        self.ms = {"drift": [], "capacity": []}
+        self._undo = []
+        for name, cls in (("drift", drift.DriftMonitor), ("capacity", capacity.CapacityMonitor)):
+            original = cls.tick
+
+            def wrapped(monitor, *args, _original=original, _name=name, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _original(monitor, *args, **kwargs)
+                finally:
+                    self.ms[_name].append((time.perf_counter() - t0) * 1e3)
+
+            cls.tick = wrapped
+            self._undo.append((cls, original))
+
+    def close(self) -> dict:
+        for cls, original in self._undo:
+            cls.tick = original
+        return {name: {"n": len(xs), "p50_ms": sorted(xs)[len(xs) // 2] if xs else None,
+                       "max_ms": max(xs) if xs else None} for name, xs in self.ms.items()}
+
+
+def _cpu() -> dict:
+    """This process's and its waited children's CPU seconds, and the
+    monotonic clock."""
+    import resource
+    import time
+
+    me, kids = resource.getrusage(resource.RUSAGE_SELF), resource.getrusage(
+        resource.RUSAGE_CHILDREN)
+    return {"self": me.ru_utime + me.ru_stime, "children": kids.ru_utime + kids.ru_stime,
+            "wall": time.monotonic()}
+
+
 def _host() -> dict:
     import threading
 
@@ -407,6 +453,8 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
         log = _GcLog(chip_smoke.TorchScorerDetector) if gc_log else None
         loop = _LoopLog(chip_smoke.TorchScorerDetector) if loop_log else None
         waker = _Probe() if probe else None
+        ticks = _TickLog()
+        cpu0 = _cpu()
         try:
             with redirect_stdout(out):
                 if lifecycle:
@@ -419,6 +467,9 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
             failed = str(exc)[:300]
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        cpu1 = _cpu()
+        cpu = {k: round(cpu1[k] - cpu0[k], 3) for k in cpu0}
+        tick_doc = ticks.close()
         gc_doc = log.close() if log is not None else None
         waits = list(loop.waits) if loop is not None else []
         if loop is not None:
@@ -439,6 +490,7 @@ def measure(root: str, reps: int, profile_first: bool, gc_log: bool = False,
                           "profiled_first": captured, "gc": gc_doc,
                           "host": {"before": host0, "after": _host()},
                           "pinned_allocs": {"before": pinned0, "after": _pinned_stats()},
+                          "cpu_s": cpu, "ticks": tick_doc,
                           **{k: doc.get(k) for k in (
                               "max_release_wait_ms", "mean_release_wait_ms",
                               "releases", "socket_lines_per_s", "lone_p50_ms")}}),

@@ -751,7 +751,9 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys):
     attention, (b) the mesh example against one device with kernel 1 once
     per row and batch, (c) the sequence-parallel example through its fit
     against the one-device flash detector, (d) a mesh of one bit-equal, (e)
-    a process group of one (gloo here, NCCL on the card)."""
+    a process group of one (gloo here, NCCL on the card), (f) and (g) the
+    model axis computing, against one device, each shard holding half the
+    split leaves' bytes."""
     import json
 
     stand_in = _counting_stand_in(monkeypatch)
@@ -768,11 +770,20 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "MESH_SEQ_DETECT", 64)
     monkeypatch.setattr(chip_smoke, "MESH_SEQ_CALL", 16)
     monkeypatch.setattr(chip_smoke, "MESH_ONE_DETECT", 256)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_CPU_CHANGES", narrow)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_FLASH_CPU_CHANGES", {
+        "vocab_size": 1024, "dtype": "float32", "dim": 32, "depth": 1, "seq_len": 64,
+        "max_batch": 16, "data_use_training": 64, "train_epochs": 2, "min_train_steps": 10})
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_DETECT", 1024)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_CALL", 256)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_FLASH_DETECT", 64)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_FLASH_CALL", 16)
     result = chip_smoke.phase_mesh("cpu", device="cpu")
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
              if line.startswith("{")]
     assert [line["phase"] for line in lines] == ["mesh_ring"] * 4 + [
-        "mesh_scorer", "mesh_seqparallel", "mesh_of_one", "mesh_bootstrap", "mesh"]
+        "mesh_scorer", "mesh_seqparallel", "mesh_of_one", "mesh_bootstrap", "mesh_model",
+        "mesh_model_flash", "mesh"]
     assert all(max(r["max_abs_err"].values()) <= r["tolerance"] for r in result["ring"])
     scorer, seq = result["scorer"], result["seqparallel"]
     assert scorer["mesh"] == "mesh(data=8)" and seq["mesh"] == "mesh(data=2,seq=4)"
@@ -791,9 +802,79 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys):
     assert result["one"]["bit_equal"] and result["one"]["threshold_equal"]
     assert result["bootstrap"]["backend"] == "gloo" and result["bootstrap"]["returncode"] == 0
     assert result["launches"] == scorer["launches"] + seq["launches"]
-    # the counts restart before (b) and before (c); the checks beside the
-    # paths run uncounted
-    assert stand_in.launches >= seq["launches"]
+    assert list(result["parts_s"]) == ["ring", "scorer", "seqparallel", "one", "bootstrap",
+                                       "model", "model_flash"]
+    model, model_flash = result["model"], result["model_flash"]
+    assert model["mesh"] == "mesh(data=4,model=2)"
+    assert model_flash["mesh"] == "mesh(data=2,model=2)"
+    # (f): one calibration chunk and 4 batches of 256 over 4 rows; (g): 4
+    # chunks of 16 and 4 batches of 16 over 2 rows
+    assert model["launches"] == model["expected_launches"]["candidate_lse"] == (1 + 4) * 4
+    assert model_flash["launches"] == model_flash["expected_launches"]["candidate_lse"] == \
+        (4 + 4) * 2
+    for path in (model, model_flash):
+        assert path["vs_one_device"]["max_abs_delta"] < 1e-4 and path["alerts_match"]
+        # the controls on one call's rows: the bound passes one device's
+        # reordered sums and fails proj's head halves swapped
+        controls = path["controls"]
+        assert controls["rows"] == path["call_size"]
+        assert max(controls["fp32"], controls["split"]) < 1e-4
+        assert controls["reordered"] <= path["tolerance"] < controls["swapped"]
+        assert set(path["parts_s"]) == {"path", "yardstick", "controls", "kernel_checks",
+                                        "kernel_timings"}
+        assert all(r["ok"] for r in path["head_checks"]) and path["head_checks"]
+        split = path["split_bytes"]
+        assert split["per_shard"] == [[split["one_mth"]] * 2] * len(split["per_shard"])
+        assert path["loss_last"] < path["loss_first"]
+    # the row's head: a 256 / 4 rows x 32 positions batch against the whole
+    # E; (g)'s shards ran attention at 4 / 2 = 2 heads
+    assert [2048, 1024, 32, "float32"] in model["head_shapes"]
+    assert {tuple(s[:5]) for s in model_flash["flash_shapes"]} >= {(8, 2, 64, 64, 8)}
+    assert {s[6] for s in model_flash["flash_shapes"]} == {False, True}
+    # the counts restart before each path; the checks beside the paths run
+    # uncounted
+    assert stand_in.launches >= model_flash["launches"]
+
+
+_SILENT_STAGE = """
+import faulthandler, sys, threading, time
+faulthandler.register(int(sys.argv[1]), all_threads=True)
+def serve_forever():
+    time.sleep(120)
+def _run_loop():
+    time.sleep(120)
+threading.Thread(target=serve_forever, name="WebServerThread", daemon=True).start()
+print("up", flush=True)
+_run_loop()
+"""
+
+
+def test_a_silent_stage_leaves_its_thread_stacks(tmp_path):
+    """Phase pipeline's evidence when a stage stops answering: each stage
+    process dumps every thread's stack on ``PIPELINE_DUMP_SIGNAL`` into its
+    stderr file, and ``dump_stage_stacks`` reads them back with each
+    thread's role (the engine loop, the HTTP server) and innermost
+    frames; a stage that has exited reports its code."""
+    import subprocess
+    import sys
+
+    with open(tmp_path / "detector.err", "wb") as err:
+        proc = subprocess.Popen([sys.executable, "-c", _SILENT_STAGE,
+                                 str(int(chip_smoke.PIPELINE_DUMP_SIGNAL))],
+                                stdout=subprocess.PIPE, stderr=err)
+    done = subprocess.Popen([sys.executable, "-c", "pass"])
+    done.wait(30)
+    try:
+        assert proc.stdout.readline() == b"up\n"
+        stacks = chip_smoke.dump_stage_stacks({"detector": proc, "output": done}, tmp_path)
+    finally:
+        proc.kill()
+        proc.wait(30)
+    assert stacks["output"] == {"exited": 0}
+    roles = {t["role"]: t["innermost"] for t in stacks["detector"]["threads"]}
+    assert {"engine", "http"} <= set(roles)
+    assert any("_run_loop" in f for f in roles["engine"])
+    assert any("serve_forever" in f for f in roles["http"])
 
 
 def test_pipeline_files_change_only_what_the_phase_names(tmp_path):

@@ -262,6 +262,39 @@ def test_the_health_check_degrades_while_drifting():
     assert status == DEGRADED and "drifted" in detail
 
 
+def test_start_runs_the_ticks_numpy_paths_before_the_thread(monkeypatch):
+    """A deliberate difference from the JAX monitor (ROADMAP.md's
+    register): ``start`` runs every numpy path a tick takes once on
+    synthetic values (``warm_statistics``), on the caller's thread and
+    before the monitor's thread starts, so a module numpy loads at its
+    first call is not loaded inside a tick while traffic flows; the ticks'
+    results stay the JAX monitor's."""
+    from detectmateservice_tpu_torch.obs import drift as drift_mod
+
+    calls = []
+    warm = drift_mod.warm_statistics
+    monkeypatch.setattr(drift_mod, "warm_statistics", lambda: calls.append(
+        (drift_mod.threading.current_thread().name, monitor._thread)) or warm())
+    monitor = DriftMonitor(drift_settings(drift_interval_s=3600.0), FakeSampler(),
+                           labels=LABELS, clock=FakeClock())
+    monitor.start()
+    try:
+        assert calls == [(drift_mod.threading.current_thread().name, None)]
+        assert monitor._thread is not None and monitor._thread.is_alive()
+    finally:
+        monitor.stop()
+    ref = RefDrift(drift_settings(drift_trigger_intervals=1), FakeSampler(), labels=LABELS,
+                   clock=FakeClock())
+    port = DriftMonitor(drift_settings(drift_trigger_intervals=1), FakeSampler(),
+                        labels=LABELS, clock=FakeClock())
+    for values in (normal(500, seed=1), normal(500, loc=4.0, seed=2)):
+        for m in (ref, port):
+            m.sampler.set(values)
+            m.tick()
+    assert port.status()["stats"] == ref.status()["stats"]
+    assert port.status()["drifting"] == ref.status()["drifting"]
+
+
 # ---------------------------------------------------------------------------
 # capacity and the SLO tracker
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """The port's chip plane (``detectmateservice_tpu_torch/parallel``) against
 the JAX package's (``tests/test_parallel.py``'s counterparts): mesh
 construction, the sharding rules, the sharded scorer's scores and train
-steps on dp×tp and dp meshes, int8 placement, the capture map, and the
+steps on dp×tp and dp meshes, the ``model`` axis's split (each slice
+against the JAX array's shard at the same mesh position, scores and one
+step against the JAX ``ShardedScorer`` and against the port's whole
+weights, the gathered head), int8 placement, the capture map, and the
 detector's mesh mode (ring attention and the sequence axis:
 ``test_torch_ring.py``).
 
@@ -13,7 +16,9 @@ way). Inputs are numpy-seeded; weights are bridged from the JAX tree by
 the shard layout. Tolerances: fp32 scores and attention 1e-4; one train
 step's loss and weights 1e-5 on every element whose gradient is at least
 1e-7 in magnitude (AdamW's eps amplifies smaller ones, ROADMAP.md's
-register)."""
+register); the split forward against the port's whole-weight forward 1e-5;
+decisions at a threshold pinned at the JAX scores' median: no flip
+farther than 1e-4 from it; slices and shards exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -161,13 +166,107 @@ class TestShardedScorer:
         assert min(losses) < port_loss
         scores = port.score(tokens)
         assert scores.shape == (13,)
-        # every data row holds the stepped weights whole (the model axis's
-        # split is recorded in ``shardings``, not applied)
+        # the model axis's split is applied: every data row holds the
+        # stepped qkv as two [96, 64] slices of the whole
         whole = port.state_dict()["blocks.0.qkv.weight"]
-        assert port.shardings["blocks.0.qkv.weight"].spec == ("model", None)
-        for row in port._rows[1:]:
-            assert tuple(row["blocks.0.qkv.weight"].shape) == (192, 64)
-            torch.testing.assert_close(row["blocks.0.qkv.weight"], whole, rtol=0, atol=0)
+        assert port.shardings["blocks.0.qkv.weight"].spec == ("model", None) and port.split
+        assert tuple(whole.shape) == (192, 64)
+        for row in port._rows:
+            assert [tuple(t.shape) for t in row["blocks.0.qkv.weight"]] == [(96, 64)] * 2
+            torch.testing.assert_close(torch.cat(row["blocks.0.qkv.weight"]), whole,
+                                       rtol=0, atol=0)
+
+    @pytest.mark.parametrize("mesh_shape,heads", [({"data": 4, "model": 2}, 2),
+                                                  ({"data": 2, "model": 4}, 4)],
+                             ids=["data4-model2", "data2-model4"])
+    def test_split_leaves_equal_the_jax_shards(self, mesh_shape, heads):
+        """Each leaf the rules split: the port's slice on shard (d, j) is
+        the JAX array's addressable shard at the same mesh position (a
+        Linear's transposed), exactly; a replicated leaf stays whole on the
+        row's first device, as JAX replicates it."""
+        jax_sharded, port = _sharded_pair(mesh_shape, _jax_logbert(heads=heads),
+                                          _port_logbert(heads=heads))
+        assert port.split and port.model_parallelism == mesh_shape["model"]
+        jmesh = jax_sharded.mesh
+        leaves = jax.tree_util.tree_leaves(jax_sharded.params)
+        leaf_of = _leaf_ids(jax_sharded.params)
+        linear = quant.linear_weight_keys(port.scorer.meta_model())
+        split = 0
+        for key, ident in leaf_of.items():
+            arr = leaves[int(ident.flatten()[0])]
+            by_device = {shard.device: np.asarray(shard.data) for shard in arr.addressable_shards}
+            spec = tuple(port.shardings[key].spec)
+            for d in range(mesh_shape["data"]):
+                parts = port._rows[d][key]
+                if "model" not in spec:
+                    assert len(parts) == 1, key
+                    continue
+                assert len(parts) == mesh_shape["model"], key
+                for j, part in enumerate(parts):
+                    want = by_device[jmesh.devices[d, j]]
+                    want = want.T if key in linear else want
+                    assert tuple(part.shape) == want.shape, key
+                    np.testing.assert_array_equal(part.detach().numpy(), want, err_msg=key)
+            split += "model" in spec
+        # tok_embed, and qkv, proj, mlp_in, mlp_out weights and the two
+        # column-parallel biases in each of the two blocks
+        assert split == 1 + 2 * 6
+        held = port.shard_bytes()
+        assert held["per_shard"] == [[held["whole"] // mesh_shape["model"]]
+                                     * mesh_shape["model"]] * mesh_shape["data"]
+
+    @pytest.mark.parametrize("mesh_shape,heads,attn", [
+        ({"data": 4, "model": 2}, 2, "auto"), ({"data": 2, "model": 4}, 4, "auto"),
+        ({"data": 2, "seq": 2, "model": 2}, 2, "ring")],
+        ids=["data4-model2", "data2-model4", "data2-seq2-model2"])
+    def test_split_scores_and_step_against_jax(self, mesh_shape, heads, attn):
+        """Scores against the JAX ShardedScorer on the same mesh and against
+        the port's whole weights on one device, decisions at a pinned
+        threshold, then one train step (same mask) against JAX's."""
+        jax_sharded, port = _sharded_pair(mesh_shape, _jax_logbert(heads=heads, attn_impl=attn),
+                                          _port_logbert(heads=heads, attn_impl=attn))
+        assert port.split
+        tokens = np.random.default_rng(11).integers(3, 512, (16, 16)).astype(np.int32)
+        tokens[3, 7:] = 0
+        want = np.asarray(jax_sharded.score(tokens))
+        got = port.score(tokens)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        one = _port_logbert(heads=heads)     # whole weights, one device
+        single = one.init_model(CPU)
+        single.load_state_dict(port.state_dict())
+        np.testing.assert_allclose(got, one.score(single, torch.from_numpy(tokens)).numpy(),
+                                   atol=1e-5)
+        threshold = float(np.median(want))
+        flips = np.flatnonzero((got > threshold) != (want > threshold))
+        assert all(abs(want[i] - threshold) < 1e-4 for i in flips)
+        rng = jax.random.PRNGKey(3)
+        mask = _jax_mask(rng, tokens)
+        grads = _grads(one, port.state_dict(), tokens, mask)
+        jax_loss = jax_sharded.train_step(rng, tokens)
+        _assert_step_equal(jax_sharded, port, grads, jax_loss, port.train_step(tokens, mask=mask))
+
+    def test_the_gathered_head_is_the_whole_embedding(self):
+        """A row's head joins E's D-slices: the whole E, exactly, on the
+        row's first device."""
+        port = ShardedScorer(_port_logbert(), mesh=make_mesh({"data": 4, "model": 2}))
+        whole = port.state_dict()["tok_embed.weight"]
+        for d in range(4):
+            joined = port.scorer.model_over_shards(port._rows[d]).tok_embed.weight
+            assert joined.device == port.row_device(d)
+            torch.testing.assert_close(joined, whole, rtol=0, atol=0)
+        assert [tuple(t.shape) for t in port._rows[0]["tok_embed.weight"]] == [(512, 32)] * 2
+
+    def test_heads_that_do_not_divide_keep_whole_rows(self):
+        """Two heads over a model axis of 4: the rows keep whole weights
+        (the spec still records the JAX layout) and score as one device."""
+        port = ShardedScorer(_port_logbert(), mesh=make_mesh({"data": 2, "model": 4}))
+        assert not port.split and port.shardings["blocks.0.qkv.weight"].spec == ("model", None)
+        assert all(len(parts) == 1 for parts in port._rows[0].values())
+        tokens = np.random.default_rng(12).integers(3, 512, (4, 16)).astype(np.int32)
+        single = port.scorer.init_model(CPU)
+        single.load_state_dict(port.state_dict())
+        np.testing.assert_allclose(port.score(tokens), port.scorer.score(
+            single, torch.from_numpy(tokens)).numpy(), atol=1e-5)
 
     def test_dp_only_mlp(self):
         cfg = dict(vocab_size=256, dim=32, seq_len=8)
@@ -267,16 +366,20 @@ class TestShardedScorer:
         assert port.data_parallelism == 8
 
     def test_optimizer_state_moves_between_a_mesh_and_one_device(self):
-        """A TP mesh's optimizer state is in the one-device layout and
-        loads into another mesh shape unchanged."""
+        """A TP mesh's optimizer state (AdamW over the model axis's slices)
+        is in the one-device layout and loads into another mesh shape
+        unchanged."""
         port = ShardedScorer(_port_logbert(), mesh=make_mesh({"data": 4, "model": 2}))
+        assert port.split
         tokens = np.random.default_rng(4).integers(3, 512, (8, 16)).astype(np.int32)
         port.train_step(tokens, torch.Generator().manual_seed(0))
         whole = port.optimizer.state_dict()
         single = port.scorer.init_model(CPU)
         one = port.scorer.make_optimizer(single)
         one.load_state_dict(whole)      # the one-device layout loads as is
-        other = ShardedScorer(_port_logbert(), mesh=make_mesh({"data": 2, "model": 4}))
+        assert [tuple(e["exp_avg"].shape) for e in one.state_dict()["state"].values()] == \
+            [tuple(p.shape) for p in single.parameters()]
+        other = ShardedScorer(_port_logbert(heads=4), mesh=make_mesh({"data": 2, "model": 4}))
         other.install_params(port.state_dict(), whole)
         again = other.optimizer.state_dict()
         for j, entry in whole["state"].items():
@@ -337,6 +440,7 @@ class TestDetectorMeshMode:
         msgs = [_message(i) for i in range(96)]
         det = TorchScorerDetector(config=block)
         det.setup_io()
+        assert det._sharded.split
         det.process_batch(msgs[:64])
         tokens, _ = det._featurize_raw_batch(msgs[64:])
         want = det.score_tokens(tokens)

@@ -183,6 +183,33 @@ def test_transitions_hold_every_registered_warm_set_lock(tmp_path):
     assert len(manager._owners) == 0
 
 
+def test_a_fit_step_holds_the_warm_set_lock():
+    """Every fit step holds the detector's warm-set lock, which profiler
+    transitions hold, as a fine-tune's steps do: a capture starts or stops
+    between steps, never during a backward."""
+    from detectmateservice_tpu_torch.library.detectors import TorchScorerDetector
+    from detectmateservice_tpu_torch.schemas import ParserSchema
+
+    det = TorchScorerDetector(config={
+        "method_type": "torch_scorer", "device": "cpu", "auto_config": False, "model": "mlp",
+        "vocab_size": 256, "dim": 16, "seq_len": 8, "max_batch": 32, "dtype": "float32",
+        "data_use_training": 32, "min_train_steps": 3, "train_epochs": 1,
+        "async_fit": False})
+    det.setup_io()
+    assert det._warm in profiling.PROFILER._owners
+    held = []
+    step = det._scorer.train_step
+
+    def recording(*args, **kwargs):
+        held.append(det._warm.lock._is_owned())
+        return step(*args, **kwargs)
+
+    det._scorer.train_step = recording
+    det.process_batch([ParserSchema(EventID=1, template="user <*> in", variables=[str(i)],
+                                    logID=str(i)).serialize() for i in range(32)])
+    assert len(held) >= 3 and all(held)
+
+
 # -- the routes, on each package's Service ------------------------------------------
 
 def _request(port, method, path, payload=None):
@@ -248,3 +275,39 @@ def test_the_profile_routes_answer_alike(pkg, tmp_path):
         thread.join(10)
     assert kept == ["capture-0002", "capture-0003"]
     assert codes == [404, 200, 409, 409, 200, 400, 400, 200, 200]
+
+
+_KINETO_THREAD_SCRIPT = """
+import sys, tempfile, torch
+from detectmateservice_tpu_torch.utils import profiling
+if sys.argv[1] == "init":
+    assert profiling.PROFILER.init_on_this_thread(torch.device("cpu"))
+profiling.PROFILER.start(tempfile.mkdtemp(), 0.1, device=torch.device("cpu"))
+assert profiling.PROFILER.wait(120)
+assert profiling.PROFILER.status()["last"]["state"] == "done"
+"""
+
+
+@pytest.mark.parametrize("mode", ["capture-thread-first", "init"])
+def test_kineto_initializes_on_the_thread_that_registered_it(mode):
+    """ROADMAP.md queue 3 item 17: torch registers its Kineto client on the thread that
+    imports it, and a first start on the capture thread logs "External init
+    callback must run in same thread as registerClient"; a start and stop
+    on the main thread first (``init_on_this_thread``, which a Service on
+    CUDA calls before its engine starts) leaves no such line. Off the main
+    thread it does nothing."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", _KINETO_THREAD_SCRIPT, mode],
+                          capture_output=True, text=True, timeout=240,
+                          cwd=str(__import__("pathlib").Path(__file__).resolve().parent.parent))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    logged = "External init callback must run in same thread as registerClient" in proc.stderr
+    assert logged == (mode == "capture-thread-first")
+    ran = []
+    worker = threading.Thread(target=lambda: ran.append(
+        profiling.PROFILER.init_on_this_thread(torch.device("cpu"))))
+    worker.start()
+    worker.join()
+    assert ran == [False]
